@@ -1,0 +1,61 @@
+"""Carry geometry, vertical grid and model state across frameworks as plain
+dicts of numpy arrays, keyed by the field names of the JAX package's
+dataclasses (`Geom2D`, `VGrid`, `OceanState` with its nested `ext`).
+
+    geom = geom_from_numpy({f: np.asarray(getattr(jgeom, f)) for f in ...})
+    st = state_from_numpy(d, device="cpu")
+    d = state_to_numpy(st)
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .core.dg2d import State2D
+from .core.extrusion import VGrid
+from .core.geometry import Geom2D
+from .core.stepper import OceanState
+from .kernels.dispatch import default_device
+
+_INDEX_FIELDS = ("ext_tri", "ext_na", "ext_nb")
+
+
+def _tensor(x, device, dtype=None) -> torch.Tensor:
+    # a writable copy: arrays exported by other frameworks may be read-only
+    return torch.as_tensor(np.array(x, order="C"), device=device, dtype=dtype)
+
+
+def geom_from_numpy(d: dict, device=None) -> Geom2D:
+    """Geom2D from a dict of its fields, each keeping its numpy dtype
+    except the index fields, which become int64."""
+    device = default_device(device)
+    kw = {}
+    for f in dataclasses.fields(Geom2D):
+        kind = torch.int64 if f.name in _INDEX_FIELDS else None
+        kw[f.name] = _tensor(d[f.name], device, kind)
+    return Geom2D(**kw)
+
+
+def vgrid_from_numpy(d: dict, device=None) -> VGrid:
+    return VGrid(b=_tensor(d["b"], default_device(device)), nl=int(d["nl"]))
+
+
+def state_from_numpy(d: dict, device=None) -> OceanState:
+    """OceanState from a dict of its fields, with ``d["ext"]`` a dict of
+    the State2D fields (eta, qx, qy)."""
+    device = default_device(device)
+    t = lambda x: _tensor(x, device)
+    ext = State2D(**{k: t(d["ext"][k]) for k in ("eta", "qx", "qy")})
+    kw = {f.name: t(d[f.name]) for f in dataclasses.fields(OceanState)
+          if f.name != "ext"}
+    return OceanState(ext=ext, **kw)
+
+
+def state_to_numpy(st: OceanState) -> dict:
+    n = lambda x: x.detach().cpu().numpy()
+    d = {f.name: n(getattr(st, f.name)) for f in dataclasses.fields(OceanState)
+         if f.name != "ext"}
+    d["ext"] = {k: n(getattr(st.ext, k)) for k in ("eta", "qx", "qy")}
+    return d

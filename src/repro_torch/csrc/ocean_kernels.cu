@@ -1,0 +1,443 @@
+// Hand-written Hopper (sm_90a) kernels of the ocean step's hot path.
+//
+// Four kernels, each templated on float / double, each launched through an
+// extern "C" function that returns the cudaError_t of the launch (the value
+// of cudaGetLastError() right after it).  The Python wrappers in
+// repro_torch/kernels/{matrix_free,column_solve,horizontal_flux}.py check
+// shapes, dtypes and contiguity, allocate every output and scratch buffer,
+// and pass the current PyTorch stream; the kernels never synchronise and
+// allocate nothing.
+//
+// Layout: every tensor is the stepper's own structure-of-arrays layout with
+// the triangle index nt innermost, so one thread per triangle column reads
+// neighbouring addresses across a warp (coalesced).  There is no cell
+// layout and no 128-column padding: a ragged last block is masked with
+// `if (idx >= n) return;`.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC -Xptxas -v -o libocean_kernels.so ocean_kernels.cu
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+
+inline unsigned grid_for(int64_t n) {
+  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+}
+
+// ---------------------------------------------------------------------------
+// K1 / K2: matrix-free column sweeps for r (top-down) and w (bottom-up).
+//
+// Replaces the TPU kernels repro/kernels/matrix_free.py::solve_r_cell
+// (_r_kernel) and ::solve_w_cell (_w_kernel).
+// Bound on the H100: memory.  Each (component, triangle) column reads its
+// nl*6 RHS values once and writes nl*6 results once, with ~34 flops per
+// layer against 48 bytes (f32): far below the ridge of ~20 flops/byte.
+// Design: one thread per (component, triangle); 12/area is read once, the
+// 3-value carry stays in registers across the layer loop, and the component
+// index is part of the thread index, so no fold/tile copies are needed.
+// ---------------------------------------------------------------------------
+template <typename T>
+__device__ __forceinline__ void minv_faces(const T* __restrict__ f, int64_t nt,
+                                           T inv, T gt[3], T gb[3]) {
+  T x[6];
+#pragma unroll
+  for (int n = 0; n < 6; ++n) x[n] = f[n * nt];
+  const T st = x[0] + x[1] + x[2];
+  const T sb = x[3] + x[4] + x[5];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    gt[i] = inv * (x[i] - T(0.25) * st);
+    gb[i] = inv * (x[3 + i] - T(0.25) * sb);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+solve_r_kernel(const T* __restrict__ F, const T* __restrict__ area,
+               const T* __restrict__ r_surf, T* __restrict__ out,
+               int64_t K, int64_t nl, int64_t nt) {
+  const int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (idx >= K * nt) return;
+  const int64_t k = idx / nt;
+  const int64_t t = idx - k * nt;
+  const T inv = T(12) / area[t];
+  T rb[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) rb[i] = r_surf[(k * 3 + i) * nt + t];
+  for (int64_t l = 0; l < nl; ++l) {
+    const int64_t base = (k * nl + l) * 6 * nt + t;
+    T gt[3], gb[3];
+    minv_faces(F + base, nt, inv, gt, gb);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      rb[i] = rb[i] - gt[i] - gb[i];
+      out[base + i * nt] = rb[i] + T(2) * gb[i];
+      out[base + (3 + i) * nt] = rb[i];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+solve_w_kernel(const T* __restrict__ F, const T* __restrict__ area,
+               const T* __restrict__ w_floor, T* __restrict__ out,
+               int64_t K, int64_t nl, int64_t nt) {
+  const int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (idx >= K * nt) return;
+  const int64_t k = idx / nt;
+  const int64_t t = idx - k * nt;
+  const T inv = T(12) / area[t];
+  T wt[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    wt[i] = w_floor ? w_floor[(k * 3 + i) * nt + t] : T(0);
+  for (int64_t l = nl - 1; l >= 0; --l) {
+    const int64_t base = (k * nl + l) * 6 * nt + t;
+    T gt[3], gb[3];
+    minv_faces(F + base, nt, inv, gt, gb);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      wt[i] = wt[i] + gt[i] + gb[i];
+      out[base + i * nt] = wt[i];
+      out[base + (3 + i) * nt] = wt[i] - T(2) * gt[i];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3: block-tridiagonal (6x6 blocks) column solve, k right-hand sides.
+//
+// Replaces the TPU kernel repro/kernels/column_solve.py::block_thomas_cell
+// (_block_thomas_kernel, _solve6).
+// Bound on the H100: memory in principle (3*36 block entries + 2*6*k
+// RHS/solution values per layer against ~1.6 kflop per layer and column),
+// but the per-thread working set (S, [U | b], C_{l-1}, y_{l-1}: about 132
+// values for k=2) is large: it stays in registers without spilling, but in
+// f64 it takes nearly the per-thread maximum, which caps occupancy (see
+// `-Xptxas -v`).  Design: one thread per column, as SLIM does (paper §2.4).  The
+// forward sweep forms S_l = D_l - L_l C_{l-1}, runs an unpivoted
+// Gauss-Jordan elimination on [U_l | b_l - L_l y_{l-1}] in registers (the
+// operators are diagonally dominant), keeps C_l, y_l in registers for the
+// next layer and stores C_l to a coalesced global scratch (nl, 6, 6, nt)
+// and y_l to the output.  The backward sweep reads C_l back.
+// ---------------------------------------------------------------------------
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads)
+block_thomas_kernel(const T* __restrict__ lo, const T* __restrict__ dg,
+                    const T* __restrict__ up, const T* __restrict__ rhs,
+                    T* __restrict__ x, T* __restrict__ Cs,
+                    int64_t nl, int64_t nt) {
+  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (t >= nt) return;
+  const int64_t bs = 36 * nt;                  // layer stride of the blocks
+  const int64_t rs = 6 * nt;                   // layer stride of rhs / x
+  const int64_t ks = nl * rs;                  // component stride of rhs / x
+  T C[6][6];
+  T y[6][K];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) C[i][j] = T(0);
+#pragma unroll
+    for (int c = 0; c < K; ++c) y[i][c] = T(0);
+  }
+  for (int64_t l = 0; l < nl; ++l) {
+    const T* L = lo + l * bs + t;
+    const T* D = dg + l * bs + t;
+    const T* U = up + l * bs + t;
+    T S[6][6];
+    T R[6][6 + K];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      T Li[6];
+#pragma unroll
+      for (int m = 0; m < 6; ++m) Li[m] = L[(i * 6 + m) * nt];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        T acc = T(0);
+#pragma unroll
+        for (int m = 0; m < 6; ++m) acc += Li[m] * C[m][j];
+        S[i][j] = D[(i * 6 + j) * nt] - acc;
+        R[i][j] = U[(i * 6 + j) * nt];
+      }
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        T acc = T(0);
+#pragma unroll
+        for (int m = 0; m < 6; ++m) acc += Li[m] * y[m][c];
+        R[i][6 + c] = rhs[c * ks + l * rs + i * nt + t] - acc;
+      }
+    }
+    // unpivoted Gauss-Jordan: S -> I, R -> S^{-1} R
+#pragma unroll
+    for (int col = 0; col < 6; ++col) {
+      const T inv = T(1) / S[col][col];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) S[col][j] *= inv;
+#pragma unroll
+      for (int j = 0; j < 6 + K; ++j) R[col][j] *= inv;
+#pragma unroll
+      for (int r = 0; r < 6; ++r) {
+        if (r == col) continue;
+        const T f = S[r][col];
+#pragma unroll
+        for (int j = 0; j < 6; ++j) S[r][j] -= f * S[col][j];
+#pragma unroll
+        for (int j = 0; j < 6 + K; ++j) R[r][j] -= f * R[col][j];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        C[i][j] = R[i][j];
+        Cs[l * bs + (i * 6 + j) * nt + t] = R[i][j];
+      }
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        y[i][c] = R[i][6 + c];
+        x[c * ks + l * rs + i * nt + t] = R[i][6 + c];
+      }
+    }
+  }
+  // backward sweep: x_{nl-1} = y_{nl-1} (already stored, still in y);
+  // x_l = y_l - C_l x_{l+1}
+  for (int64_t l = nl - 2; l >= 0; --l) {
+    const T* Cl = Cs + l * bs + t;
+    T xn[6][K];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      T Ci[6];
+#pragma unroll
+      for (int m = 0; m < 6; ++m) Ci[m] = Cl[(i * 6 + m) * nt];
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        T acc = T(0);
+#pragma unroll
+        for (int m = 0; m < 6; ++m) acc += Ci[m] * y[m][c];
+        xn[i][c] = x[c * ks + l * rs + i * nt + t] - acc;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        y[i][c] = xn[i][c];
+        x[c * ks + l * rs + i * nt + t] = xn[i][c];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4: fused lateral upwind advective flux term <<phi f_up speed J_l>>.
+//
+// Replaces the TPU kernel repro/kernels/horizontal_flux.py::lateral_flux_cell
+// (_lateral_flux_kernel).
+// Bound on the H100: memory.  Per (field, layer, triangle) it reads 6 nodal
+// values, 12 pre-gathered neighbour values and 12 flux speeds (shared by
+// the k fields), and writes 6 values, with ~300 flops: about 3 flops/byte
+// in f32, below the ridge.  Design: one thread per (field, layer,
+// triangle): the layers are independent in this term, so k*nl*nt threads
+// fill the card; the 12-qp intermediates (zeta interpolation, edge
+// interpolation, upwind select, speed multiply, weighted scatter onto the
+// 6 nodes) never leave registers.  The speed is indexed without the field
+// axis, so it is not tiled.  The quadrature constants come from the
+// caller (repro_torch/core/geometry.py), not from this file.
+// ---------------------------------------------------------------------------
+template <typename T>
+struct LatConsts {
+  T pz[2][2];  // PHI_ZQ[z][top|bot]
+  T pa[2];     // node-a edge basis at the 2 edge Gauss points
+  T pb[2];     // node-b edge basis
+  T w[2];      // W_GAUSS
+  int ea[3];   // EDGE_A
+  int eb[3];   // EDGE_B
+};
+
+template <typename T>
+__device__ __forceinline__ T pick3(const T a[3], int i) {
+  return i == 0 ? a[0] : (i == 1 ? a[1] : a[2]);
+}
+
+template <typename T>
+__device__ __forceinline__ void add3(T a[3], int i, T v) {
+  if (i == 0) a[0] += v;
+  else if (i == 1) a[1] += v;
+  else a[2] += v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lateral_flux_kernel(const T* __restrict__ f, const T* __restrict__ fext,
+                    const T* __restrict__ speed, const T* __restrict__ edge_len,
+                    T* __restrict__ out, const LatConsts<T> c,
+                    int64_t k, int64_t nl, int64_t nt) {
+  const int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (idx >= k * nl * nt) return;
+  const int64_t kl = idx / nt;                 // field * nl + layer
+  const int64_t t = idx - kl * nt;
+  const int64_t l = kl % nl;
+  const T* fp = f + kl * 6 * nt + t;
+  const T* ep = fext + kl * 12 * nt + t;
+  const T* sp = speed + l * 12 * nt + t;
+  T ft[3], fb[3];
+#pragma unroll
+  for (int n = 0; n < 3; ++n) {
+    ft[n] = fp[n * nt];
+    fb[n] = fp[(3 + n) * nt];
+  }
+  T acc_t[3] = {T(0), T(0), T(0)};
+  T acc_b[3] = {T(0), T(0), T(0)};
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const int na = c.ea[e];
+    const int nb = c.eb[e];
+    const T ft_a = pick3(ft, na), fb_a = pick3(fb, na);
+    const T ft_b = pick3(ft, nb), fb_b = pick3(fb, nb);
+    const T x0 = ep[(e * 4 + 0) * nt];         // facing a, top
+    const T x1 = ep[(e * 4 + 1) * nt];         // facing a, bottom
+    const T x2 = ep[(e * 4 + 2) * nt];         // facing b, top
+    const T x3 = ep[(e * 4 + 3) * nt];         // facing b, bottom
+    const T len = edge_len[e * nt + t];
+#pragma unroll
+    for (int z = 0; z < 2; ++z) {
+      const T pzt = c.pz[z][0];
+      const T pzb = c.pz[z][1];
+      const T fi_a = pzt * ft_a + pzb * fb_a;
+      const T fi_b = pzt * ft_b + pzb * fb_b;
+      const T fe_a = pzt * x0 + pzb * x1;
+      const T fe_b = pzt * x2 + pzb * x3;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const T fi = c.pa[q] * fi_a + c.pb[q] * fi_b;
+        const T fe = c.pa[q] * fe_a + c.pb[q] * fe_b;
+        const T s = sp[((z * 3 + e) * 2 + q) * nt];
+        const T g = (s > T(0) ? fi : fe) * s * (len * c.w[q]);
+        const T ca = c.pa[q] * g;
+        const T cb = c.pb[q] * g;
+        add3(acc_t, na, pzt * ca);
+        add3(acc_t, nb, pzt * cb);
+        add3(acc_b, na, pzb * ca);
+        add3(acc_b, nb, pzb * cb);
+      }
+    }
+  }
+  T* op = out + kl * 6 * nt + t;
+#pragma unroll
+  for (int n = 0; n < 3; ++n) {
+    op[n * nt] = acc_t[n];
+    op[(3 + n) * nt] = acc_b[n];
+  }
+}
+
+template <typename T>
+int launch_solve_r(const void* F, const void* area, const void* r_surf,
+                   void* out, int64_t K, int64_t nl, int64_t nt, void* stream) {
+  solve_r_kernel<T><<<grid_for(K * nt), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(F), static_cast<const T*>(area),
+      static_cast<const T*>(r_surf), static_cast<T*>(out), K, nl, nt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_solve_w(const void* F, const void* area, const void* w_floor,
+                   void* out, int64_t K, int64_t nl, int64_t nt, void* stream) {
+  solve_w_kernel<T><<<grid_for(K * nt), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(F), static_cast<const T*>(area),
+      static_cast<const T*>(w_floor), static_cast<T*>(out), K, nl, nt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int K>
+int launch_block_thomas_k(const void* lo, const void* dg, const void* up,
+                          const void* rhs, void* x, void* Cs, int64_t nl,
+                          int64_t nt, void* stream) {
+  block_thomas_kernel<T, K><<<grid_for(nt), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(lo), static_cast<const T*>(dg),
+      static_cast<const T*>(up), static_cast<const T*>(rhs),
+      static_cast<T*>(x), static_cast<T*>(Cs), nl, nt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_block_thomas(const void* lo, const void* dg, const void* up,
+                        const void* rhs, void* x, void* Cs, int64_t k,
+                        int64_t nl, int64_t nt, void* stream) {
+  switch (k) {  // the step solves k = 2 (u, v and T, S); k = 4 is tested
+    case 2: return launch_block_thomas_k<T, 2>(lo, dg, up, rhs, x, Cs, nl, nt, stream);
+    case 4: return launch_block_thomas_k<T, 4>(lo, dg, up, rhs, x, Cs, nl, nt, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int launch_lateral_flux(const void* f, const void* fext, const void* speed,
+                        const void* edge_len, void* out, const double* consts,
+                        const int64_t* edges, int64_t k, int64_t nl,
+                        int64_t nt, void* stream) {
+  LatConsts<T> c;
+  for (int z = 0; z < 2; ++z)
+    for (int v = 0; v < 2; ++v) c.pz[z][v] = static_cast<T>(consts[z * 2 + v]);
+  for (int q = 0; q < 2; ++q) {
+    c.pa[q] = static_cast<T>(consts[4 + q]);
+    c.pb[q] = static_cast<T>(consts[6 + q]);
+    c.w[q] = static_cast<T>(consts[8 + q]);
+  }
+  for (int e = 0; e < 3; ++e) {
+    c.ea[e] = static_cast<int>(edges[e]);
+    c.eb[e] = static_cast<int>(edges[3 + e]);
+  }
+  lateral_flux_kernel<T><<<grid_for(k * nl * nt), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(f), static_cast<const T*>(fext),
+      static_cast<const T*>(speed), static_cast<const T*>(edge_len),
+      static_cast<T*>(out), c, k, nl, nt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* ocean_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+#define OCEAN_LAUNCHERS(T, SUFFIX)                                              \
+  int solve_r_##SUFFIX(const void* F, const void* area, const void* r_surf,     \
+                       void* out, int64_t K, int64_t nl, int64_t nt,            \
+                       void* stream) {                                          \
+    return launch_solve_r<T>(F, area, r_surf, out, K, nl, nt, stream);          \
+  }                                                                             \
+  int solve_w_##SUFFIX(const void* F, const void* area, const void* w_floor,    \
+                       void* out, int64_t K, int64_t nl, int64_t nt,            \
+                       void* stream) {                                          \
+    return launch_solve_w<T>(F, area, w_floor, out, K, nl, nt, stream);         \
+  }                                                                             \
+  int block_thomas_##SUFFIX(const void* lo, const void* dg, const void* up,     \
+                            const void* rhs, void* x, void* Cs, int64_t k,      \
+                            int64_t nl, int64_t nt, void* stream) {             \
+    return launch_block_thomas<T>(lo, dg, up, rhs, x, Cs, k, nl, nt, stream);   \
+  }                                                                             \
+  int lateral_flux_##SUFFIX(const void* f, const void* fext, const void* speed, \
+                            const void* edge_len, void* out,                    \
+                            const double* consts, const int64_t* edges,         \
+                            int64_t k, int64_t nl, int64_t nt, void* stream) {  \
+    return launch_lateral_flux<T>(f, fext, speed, edge_len, out, consts,        \
+                                  edges, k, nl, nt, stream);                    \
+  }
+
+OCEAN_LAUNCHERS(float, f32)
+OCEAN_LAUNCHERS(double, f64)
+
+#undef OCEAN_LAUNCHERS
+
+}  // extern "C"

@@ -1,0 +1,124 @@
+"""Card-only tests of the PyTorch port: each CUDA kernel (K1-K4) against its
+plain PyTorch version on the card, the wrappers' input checks, and a short
+step of the cuda backend against the plain backend.
+
+Run on a machine with a CUDA card (no JAX needed):
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+
+Each test decides inside itself whether a card is present and skips
+otherwise.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import quickstart  # noqa: E402
+from repro_torch.core import stepper  # noqa: E402
+from repro_torch.kernels import (column_solve, dispatch,  # noqa: E402
+                                 horizontal_flux, matrix_free, ops)
+
+pytestmark = pytest.mark.gpu
+
+DTYPES = [torch.float32, torch.float64]
+TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _on(dev, dtype, *arrs):
+    return [torch.as_tensor(a).to(device=dev, dtype=dtype) for a in arrs]
+
+
+def _close(out, ref, dtype):
+    scale = max(float(ref.abs().max()), 1.0)
+    err = float((out - ref).abs().max())
+    assert err <= TOL[dtype] * scale, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nl", [1, 3])
+def test_matrix_free_kernels(cuda, dtype, nl):
+    rng = np.random.default_rng(nl)
+    K, nt = 2, 200
+    F, bc = rng.normal(size=(K, nl, 6, nt)), rng.normal(size=(K, 3, nt))
+    area = 0.5 + rng.random(nt)
+    F, area, bc = _on(cuda, dtype, F, area, bc)
+    _close(matrix_free.solve_r(F, area, bc), matrix_free.solve_r_plain(F, area, bc),
+           dtype)
+    _close(matrix_free.solve_w(F, area, bc), matrix_free.solve_w_plain(F, area, bc),
+           dtype)
+    _close(matrix_free.solve_w(F, area), matrix_free.solve_w_plain(F, area), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nl,k", [(1, 2), (3, 2), (3, 4)])
+def test_block_thomas_kernel(cuda, dtype, nl, k):
+    rng = np.random.default_rng(10 * nl + k)
+    nt = 200
+    lo, dg, up = (0.1 * rng.normal(size=(nl, 6, 6, nt)) for _ in range(3))
+    lo[0] = 0.0
+    up[-1] = 0.0
+    dg += 2.0 * np.eye(6)[None, :, :, None]
+    rhs = rng.normal(size=(k, nl, 6, nt))
+    lo, dg, up, rhs = _on(cuda, dtype, lo, dg, up, rhs)
+    _close(column_solve.block_thomas(lo, dg, up, rhs),
+           column_solve.block_thomas_plain(lo, dg, up, rhs), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nl,k", [(1, 2), (3, 4)])
+def test_lateral_flux_kernel(cuda, dtype, nl, k):
+    rng = np.random.default_rng(100 + 10 * nl + k)
+    nt = 200
+    f = rng.normal(size=(k, nl, 6, nt))
+    fext = rng.normal(size=(k, nl, 3, 2, 2, nt))
+    speed = rng.normal(size=(nl, 2, 3, 2, nt))
+    elen = 0.5 + rng.random((3, nt))
+    f, fext, speed, elen = _on(cuda, dtype, f, fext, speed, elen)
+    _close(horizontal_flux.lateral_flux(f, fext, speed, elen),
+           horizontal_flux.lateral_flux_plain(f, fext, speed, elen), dtype)
+    torch.cuda.synchronize()
+
+
+def test_wrappers_reject_bad_inputs(cuda):
+    F = torch.zeros((1, 2, 6, 8), device=cuda)
+    area = torch.ones(8, device=cuda)
+    with pytest.raises(TypeError):
+        matrix_free.solve_w(F, area.double())
+    with pytest.raises(ValueError):                  # not contiguous
+        matrix_free.solve_w(torch.zeros((1, 2, 8, 6), device=cuda)
+                            .transpose(-1, -2), area)
+    with pytest.raises(ValueError):
+        matrix_free.solve_w(F, area[:4])
+    with pytest.raises(ValueError):
+        matrix_free.solve_w(F, area.cpu())
+    blk = torch.zeros((2, 6, 6, 8), device=cuda)
+    with pytest.raises(ValueError):                  # k = 3 is not built
+        column_solve.block_thomas(blk, blk, blk, torch.zeros((3, 2, 6, 8),
+                                                             device=cuda))
+
+
+def test_step_cuda_matches_plain(cuda):
+    geom, vg, cfg, st = quickstart.setup(nx=12, nl=4, dtype=torch.float64,
+                                         device=cuda)
+    ops.reset_launches()
+    a = stepper.step(geom, vg, cfg, st)
+    assert dict(ops.LAUNCHES) == {("solve_r", "cuda"): 2, ("solve_w", "cuda"): 2,
+                                  ("block_thomas", "cuda"): 2,
+                                  ("lateral_flux", "cuda"): 4}
+    b = stepper.step(geom, vg, dataclasses.replace(cfg, backend="plain"), st)
+    assert dispatch.resolve(cfg.backend, cuda) is dispatch.Backend.CUDA
+    for name in ("ux", "uy", "T", "S", "nu_t"):
+        _close(getattr(a, name), getattr(b, name), torch.float64)
+    assert float(a.ux.abs().max()) > 0.0
