@@ -9,17 +9,31 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   2. build    — compiles src/repro_torch/csrc/ocean_kernels.cu with nvcc and
                 prints the registers / spills `-Xptxas -v` reports;
   3. kernels  — each CUDA kernel (K1 solve_r, K2 solve_w, K3 block_thomas,
-                K4 lateral_flux) against its plain PyTorch version at the
-                main path's shapes, in float32 and float64, from seeded numpy
-                inputs, with CUDA-event times against the memory bound;
+                K4 lateral_flux, K5 soa_to_cell, K6 cell_to_soa, K7 tridiag)
+                against its plain PyTorch version at the main path's shapes,
+                in float32 and float64, from seeded numpy inputs, with
+                CUDA-event times against the memory bound (K5/K6 must equal
+                their plain versions bitwise, also at a ragged nt; their
+                one-call PyTorch permutation is timed beside them);
   4. main path — 3 steps of the quickstart's baroclinic-front case widened to
                 rect_mesh(400, 200) (~333 m cells, 160,000 triangles, 16
                 layers; 20 external sub-steps, which the setup picks for
                 this mesh's thinnest triangle) through the cuda backend,
-                with the launch counters read just after; then the same 3
-                steps through the plain backend on the card, which must
-                agree; then 10 more cuda steps, timed for the steady
-                ms/step.  Run in float32 and again in float64.
+                with the launch counters read just after; then the step
+                boundary: state_to_cell -> state_from_cell of the stepped
+                state (bitwise round trip, 4 launches each of K5 and K6) and
+                the state's GLS diffusion systems through ops.tridiag (K7);
+                every cuda dispatch in the metrics registry must match one
+                kernel launch.  Then the same 3 steps through the plain
+                backend on the card, which must agree; then 10 more cuda
+                steps, timed for the steady ms/step.  Run in float32 and
+                again in float64;
+  5. observed step — 3 steps of the same case in float64 through
+                obs.diagnostics.step_with_diagnostics, writing metrics JSONL
+                into chiprun_out/, held by a halting MonitorPolicy (non-finite
+                values, volume and T/S mass drift); then
+                `python -m repro_torch.obs_smoke --device cuda`, which must
+                exit 0.
 
 The line before the last is the card's `nvidia-smi` name and power limit;
 the line before that is the JSON kernel table; the last line is
@@ -28,6 +42,7 @@ the line before that is the JSON kernel table; the last line is
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -58,12 +73,25 @@ REPLACES = {
     "solve_w": "src/repro/kernels/matrix_free.py:114",
     "block_thomas": "src/repro/kernels/column_solve.py:90",
     "lateral_flux": "src/repro/kernels/horizontal_flux.py:96",
+    "soa_to_cell": "src/repro/kernels/cell_transpose.py:41",
+    "cell_to_soa": "src/repro/kernels/cell_transpose.py:61",
+    "tridiag": "src/repro/kernels/tridiag.py:51",
 }
 PER_STEP = {"solve_r": 2, "solve_w": 2, "block_thomas": 2, "lateral_flux": 4}
+# launches of the step boundary: state_to_cell + state_from_cell of the 4
+# 3D fields, and the GLS k and eps diffusion systems through ops.tridiag
+BOUNDARY = {"soa_to_cell": 4, "cell_to_soa": 4, "tridiag": 2}
+# the case of each kernel that goes into the JSON table
+TABLE_CASE = {"solve_r": "K=2", "solve_w": "K=1", "block_thomas": "k=2",
+              "lateral_flux": "k=4", "soa_to_cell": "nt=160000",
+              "cell_to_soa": "nt=160000", "tridiag": "nt=160000"}
+RAGGED_NT = 159963    # a column count that is not a multiple of the cell
+OBS_DRIFT_MAX = 1e-10  # volume and T/S mass drift over the observed steps
 NX, NL = 400, 16      # rect_mesh(400, 200): 160,000 triangles x 16 layers
 STEPS = 3             # counted steps of the main path, compared with plain
 TIMED_STEPS = 10      # further steps, timed for the steady ms/step
 SEED = 0              # kernel-phase inputs
+ROOT = Path(__file__).resolve().parent
 
 
 def log(*a):
@@ -128,9 +156,12 @@ def nbytes(*ts) -> int:
 
 
 def kernel_cases(nt: int, nl: int, seed: int):
-    """(name, label, kernel fn, plain fn, inputs builder, flops) per case;
-    the builder turns a dtype into the inputs on the card."""
-    from repro_torch.kernels import column_solve, horizontal_flux, matrix_free
+    """One dict per case: name, label, kernel fn, plain fn, inputs builder
+    (dtype -> the inputs on the card), flops; `exact` cases must equal their
+    plain version bitwise; `library` is one PyTorch call computing the same
+    function, timed as a yardstick, or None."""
+    from repro_torch.kernels import (cell_transpose, column_solve,
+                                     horizontal_flux, matrix_free, tridiag)
     rng = np.random.default_rng(seed)
     r = lambda *s: rng.standard_normal(s, dtype=np.float32)
     F2, bc2 = r(2, nl, 6, nt), r(2, 3, nt)
@@ -144,6 +175,18 @@ def kernel_cases(nt: int, nl: int, seed: int):
     f4, fext4 = r(4, nl, 6, nt), r(4, nl, 3, 2, 2, nt)
     speed = r(nl, 2, 3, 2, nt)
     elen = (0.5 + rng.random((3, nt), dtype=np.float32)) * 300.0
+    field = r(nl, 6, nt)
+    nc = -(-nt // 128)
+    cells = r(nc, nl * 6, 128)
+    # diagonally dominant systems shaped like GLS's implicit diffusion
+    # (core/turbulence.py: diffusion_system): lo, up <= 0, d = 1 - lo - up
+    lo_t = -5.0 * rng.random((nl, nt), dtype=np.float32)
+    up_t = -5.0 * rng.random((nl, nt), dtype=np.float32)
+    lo_t[0] = 0.0
+    up_t[-1] = 0.0
+    d_t = 1.0 - lo_t - up_t
+    b_t = r(nl, nt)
+    rag = RAGGED_NT
 
     def on(dtype, *arrs):
         return [torch.as_tensor(a).to(device="cuda", dtype=dtype) for a in arrs]
@@ -152,55 +195,109 @@ def kernel_cases(nt: int, nl: int, seed: int):
         per_layer = 36 * 13 + 6 * k * 13 + 6 * (133 + 11 * k)
         return nt * (nl * per_layer + (nl - 1) * 6 * k * 13)
 
+    def case(name, label, kern, plain, inputs, flops, exact=False,
+             library=None):
+        return dict(name=name, label=label, kern=kern, plain=plain,
+                    inputs=inputs, flops=flops, exact=exact, library=library)
+
     return [
-        ("solve_r", "K=2", matrix_free.solve_r, matrix_free.solve_r_plain,
-         lambda d: on(d, F2, area, bc2), 2 * nt * (nl * 34 + 1)),
-        ("solve_w", "K=1", lambda F, a: matrix_free.solve_w(F, a),
-         lambda F, a: matrix_free.solve_w_plain(F, a),
-         lambda d: on(d, F1, area), 1 * nt * (nl * 34 + 1)),
-        ("block_thomas", "k=2", column_solve.block_thomas,
-         column_solve.block_thomas_plain,
-         lambda d: on(d, *blk, rhs), bt_flops(2)),
-        ("lateral_flux", "k=2", horizontal_flux.lateral_flux,
-         horizontal_flux.lateral_flux_plain,
-         lambda d: on(d, f4[:2], fext4[:2], speed, elen), 2 * nl * nt * 300),
-        ("lateral_flux", "k=4", horizontal_flux.lateral_flux,
-         horizontal_flux.lateral_flux_plain,
-         lambda d: on(d, f4, fext4, speed, elen), 4 * nl * nt * 300),
+        case("solve_r", "K=2", matrix_free.solve_r, matrix_free.solve_r_plain,
+             lambda d: on(d, F2, area, bc2), 2 * nt * (nl * 34 + 1)),
+        case("solve_w", "K=1", lambda F, a: matrix_free.solve_w(F, a),
+             lambda F, a: matrix_free.solve_w_plain(F, a),
+             lambda d: on(d, F1, area), 1 * nt * (nl * 34 + 1)),
+        case("block_thomas", "k=2", column_solve.block_thomas,
+             column_solve.block_thomas_plain,
+             lambda d: on(d, *blk, rhs), bt_flops(2)),
+        case("lateral_flux", "k=2", horizontal_flux.lateral_flux,
+             horizontal_flux.lateral_flux_plain,
+             lambda d: on(d, f4[:2], fext4[:2], speed, elen), 2 * nl * nt * 300),
+        case("lateral_flux", "k=4", horizontal_flux.lateral_flux,
+             horizontal_flux.lateral_flux_plain,
+             lambda d: on(d, f4, fext4, speed, elen), 4 * nl * nt * 300),
+        case("soa_to_cell", f"nt={nt}", cell_transpose.soa_to_cell,
+             cell_transpose.soa_to_cell_plain, lambda d: on(d, field), 0,
+             exact=True,
+             library=lambda x: x.view(nl * 6, nc, 128).transpose(0, 1)
+             .contiguous()),
+        case("soa_to_cell", f"nt={rag}", cell_transpose.soa_to_cell,
+             cell_transpose.soa_to_cell_plain,
+             lambda d: on(d, field[..., :rag]), 0, exact=True),
+        case("cell_to_soa", f"nt={nt}",
+             lambda c: cell_transpose.cell_to_soa(c, nt),
+             lambda c: cell_transpose.cell_to_soa_plain(c, nt),
+             lambda d: on(d, cells), 0, exact=True,
+             library=lambda c: c.transpose(0, 1).contiguous()),
+        case("cell_to_soa", f"nt={rag}",
+             lambda c: cell_transpose.cell_to_soa(c, rag),
+             lambda c: cell_transpose.cell_to_soa_plain(c, rag),
+             lambda d: on(d, cells[:-(-rag // 128)]), 0, exact=True),
+        case("tridiag", f"nt={nt}", tridiag.tridiag, tridiag.tridiag_plain,
+             lambda d: on(d, lo_t, d_t, up_t, b_t), 8 * nl * nt),
+        case("tridiag", f"nt={rag}", tridiag.tridiag, tridiag.tridiag_plain,
+             lambda d: on(d, *(a[:, :rag] for a in (lo_t, d_t, up_t, b_t))),
+             8 * nl * rag),
     ]
+
+
+def moved_bytes(name: str, ins, out) -> int:
+    """Bytes the function must move: each input read once, each output
+    written once.  K6 reads only the nt live columns of its cells."""
+    if name == "cell_to_soa":
+        return 2 * nbytes(out)
+    return nbytes(*ins, out)
 
 
 def phase_kernels(nt: int, nl: int, seed: int) -> dict:
     results = {}
-    for name, label, kern, plain, build_inputs, flops in kernel_cases(nt, nl, seed):
+    for c in kernel_cases(nt, nl, seed):
+        name, label, kern, plain = c["name"], c["label"], c["kern"], c["plain"]
         for dtype in (torch.float32, torch.float64):
-            ins = build_inputs(dtype)
+            ins = c["inputs"](dtype)
             out = kern(*ins)
             torch.cuda.synchronize()
             ref = plain(*ins)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
             scale = max(float(ref.abs().max()), 1.0)
-            if not (err <= TOL[dtype] * scale):
-                raise AssertionError(f"{name} {label} {dtype}: max_abs_err {err:.3e}"
-                                     f" > {TOL[dtype]:.0e} * {scale:.3e}")
+            if c["exact"]:
+                if out.shape != ref.shape or not torch.equal(out, ref):
+                    raise AssertionError(f"{name} {label} {dtype}: not bitwise "
+                                         f"equal to its plain version "
+                                         f"(max_abs_err {err:.3e})")
+                tol_txt = "bitwise"
+            else:
+                if not (err <= TOL[dtype] * scale):
+                    raise AssertionError(f"{name} {label} {dtype}: max_abs_err "
+                                         f"{err:.3e} > {TOL[dtype]:.0e} * "
+                                         f"{scale:.3e}")
+                tol_txt = f"tol {TOL[dtype]:.0e} x {scale:.3e}"
             ms = time_ms(lambda: kern(*ins), reps=20)
             plain_ms = time_ms(lambda: plain(*ins), reps=3, warmup=1)
-            moved = nbytes(*ins, out)
+            library_ms = None
+            if c["library"] is not None:
+                lib_out = c["library"](*ins)
+                if not torch.equal(lib_out.reshape(out.shape), out):
+                    raise AssertionError(f"{name} {label} {dtype}: the library "
+                                         "call computes another function")
+                library_ms = time_ms(lambda: c["library"](*ins), reps=20)
+            moved = moved_bytes(name, ins, out)
             t_bytes = moved / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+            t_ops = c["flops"] / PEAK_FLOPS[dtype] * 1e3
             bound = max(t_bytes, t_ops)
             dt = "f32" if dtype == torch.float32 else "f64"
+            lib_txt = "" if library_ms is None else f" library_ms={library_ms:.4f}"
             log(f"kernel {name} {label} {dt}: shape={tuple(ins[0].shape)} "
-                f"max_abs_err={err:.3e} (tol {TOL[dtype]:.0e} x {scale:.3e}) "
-                f"ms={ms:.4f} plain_ms={plain_ms:.3f} bytes={moved} "
-                f"flops={flops} bound_ms={bound:.4f} "
+                f"max_abs_err={err:.3e} ({tol_txt}) "
+                f"ms={ms:.4f} plain_ms={plain_ms:.3f}{lib_txt} bytes={moved} "
+                f"flops={c['flops']} bound_ms={bound:.4f} "
                 f"({'bytes' if t_bytes >= t_ops else 'operations'}) "
                 f"share_of_bound={bound / ms:.3f}")
             results[(name, label, dt)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=moved, flops=flops, shape=list(ins[0].shape))
+                bytes=moved, flops=c["flops"], shape=list(ins[0].shape))
             del ins, out, ref
     torch.cuda.empty_cache()
     return results
@@ -251,6 +348,73 @@ def compare_states(st_cuda, st_plain, dtype) -> dict:
     return diffs
 
 
+def check_dispatches(launches: dict) -> None:
+    """Every cuda dispatch the metrics registry counted launched exactly one
+    kernel: the registry's kernel_dispatch counts, summed by the kernel each
+    op runs, equal the wrappers' cuda launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs import metrics
+    got = {}
+    for key, v in metrics.default().snapshot()["counter"].items():
+        m = re.fullmatch(r"kernel_dispatch\{backend=(\w+),op=(\w+)\}", key)
+        if m and m.group(1) == "cuda":
+            k = (ops.KERNEL[m.group(2)], "cuda")
+            got[k] = got.get(k, 0) + int(v)
+    cuda = {k: n for k, n in launches.items() if k[1] == "cuda"}
+    if got != cuda:
+        raise AssertionError(f"kernel_dispatch {got} != cuda launches {cuda}")
+
+
+def phase_boundary(geom, vg, cfg, st, dtype) -> dict:
+    """The step boundary of a stepped state on the cuda backend:
+    state_to_cell -> state_from_cell must give the state back bitwise (and
+    the cells must equal the plain layout transform), and the state's GLS k
+    and eps diffusion systems go through ops.tridiag (K7), held to TOL
+    against turbulence.thomas_solve."""
+    from repro_torch.core import layout, stepper, turbulence
+    from repro_torch.core.extrusion import layer_geometry
+    from repro_torch.kernels import ops
+    from repro_torch.obs import metrics
+
+    metrics.reset()
+    ops.reset_launches()
+    cells = stepper.state_to_cell(st, backend="cuda")
+    back = stepper.state_from_cell(st, cells, geom.nt, backend="cuda")
+    vge = layer_geometry(vg, st.ext.eta, cfg.h_min)
+    dz = torch.clamp(vge.H.mean(dim=0, keepdim=True), min=cfg.h_min) / cfg.nl
+    p = turbulence.GLSParams()
+    solved = []
+    for f, sigma in ((st.turb_k, p.sigma_k), (st.turb_eps, p.sigma_e)):
+        lo, d, up = turbulence.diffusion_system(st.nu_t, dz, cfg.dt, sigma)
+        solved.append((ops.tridiag(lo, d, up, f, backend="cuda"),
+                       turbulence.thomas_solve(lo, d, up, f)))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    expect = {(k, "cuda"): n for k, n in BOUNDARY.items()}
+    if launches != expect:
+        raise AssertionError(f"step boundary launches {launches} != {expect}")
+    check_dispatches(launches)
+    for name in ("ux", "uy", "T", "S"):
+        x = getattr(st, name)
+        if not torch.equal(getattr(back, name), x):
+            raise AssertionError(f"{name}: cell round trip is not bitwise")
+        if not torch.equal(cells[name], layout.soa_to_cell(x)):
+            raise AssertionError(f"{name}: cells differ from layout.soa_to_cell")
+    errs = []
+    for x, ref in solved:
+        err = float((x - ref).abs().max())
+        scale = max(float(ref.abs().max()), 1.0)
+        if not err <= TOL[dtype] * scale:
+            raise AssertionError(f"tridiag on the GLS system: {err:.3e} > "
+                                 f"{TOL[dtype]:.0e} * {scale:.3e}")
+        errs.append(err)
+    log(f"step boundary {dtype}: cell round trip bitwise, cells "
+        f"{tuple(cells['T'].shape)}; GLS k/eps systems through ops.tridiag "
+        f"max_abs_err {errs[0]:.3e}, {errs[1]:.3e}; launches "
+        f"{sorted(launches.items())}")
+    return dict(launches=launches, tridiag_err=errs)
+
+
 def phase_main_path(dtype) -> dict:
     """STEPS steps of the quickstart case through the cuda backend (counted),
     then through the plain backend from the same state, which must agree;
@@ -258,6 +422,7 @@ def phase_main_path(dtype) -> dict:
     import dataclasses
     from repro_torch import quickstart
     from repro_torch.kernels import dispatch, ops
+    from repro_torch.obs import metrics
 
     t0 = time.perf_counter()
     geom, vg, cfg, st0 = quickstart.setup(nx=NX, nl=NL, dtype=dtype,
@@ -271,6 +436,7 @@ def phase_main_path(dtype) -> dict:
     heat0 = quickstart.heat_content(geom, vg, st0, cfg)
     torch.cuda.reset_peak_memory_stats()
 
+    metrics.reset()
     ops.reset_launches()
     st_cuda, times = run_steps(geom, vg, cfg, st0, STEPS)
     launches = dict(ops.LAUNCHES)
@@ -278,7 +444,9 @@ def phase_main_path(dtype) -> dict:
     expect = {(op, "cuda"): STEPS * n for op, n in PER_STEP.items()}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
+    check_dispatches(launches)
     log(f"main path cuda: launches {sorted(launches.items())}")
+    boundary = phase_boundary(geom, vg, cfg, st_cuda, dtype)
 
     cfg_plain = dataclasses.replace(cfg, backend="plain")
     st_plain, times_plain = run_steps(geom, vg, cfg_plain, st0, STEPS)
@@ -296,7 +464,8 @@ def phase_main_path(dtype) -> dict:
     res = dict(ms_per_step=ms, ms_min=min(steady) * 1e3,
                ms_max=max(steady) * 1e3, first_step_ms=times[0] * 1e3,
                physical_over_wall=cfg.dt / (ms / 1e3), peak_bytes=peak,
-               rel_diff_vs_plain=diffs, heat_drift=drift, launches=launches)
+               rel_diff_vs_plain=diffs, heat_drift=drift,
+               launches={**launches, **boundary["launches"]})
     log(f"main path cuda {dtype}: counted steps "
         f"{[round(t * 1e3, 2) for t in times]} ms; {TIMED_STEPS} steady steps "
         f"{[round(t * 1e3, 2) for t in steady]} ms: mean {ms:.2f} "
@@ -312,11 +481,70 @@ def phase_main_path(dtype) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the observed step
+# ---------------------------------------------------------------------------
+def phase_observed() -> dict:
+    """STEPS steps of the main-path case in float64 with the flight recorder
+    on, held by a halting monitor; then the obs smoke as a subprocess."""
+    from repro_torch import obs_smoke, quickstart
+    from repro_torch.obs import diagnostics, metrics
+
+    out_dir = ROOT / "chiprun_out" / "chip_smoke_obs"
+    jsonl = out_dir / "metrics.jsonl"
+    jsonl.unlink(missing_ok=True)
+    geom, vg, cfg, st = quickstart.setup(nx=NX, nl=NL, dtype=torch.float64,
+                                         device="cuda")
+    metrics.reset()
+    reg = metrics.configure(str(jsonl))
+    policy = diagnostics.MonitorPolicy(
+        cfl_max=None, volume_drift_max=OBS_DRIFT_MAX,
+        mass_drift_max=OBS_DRIFT_MAX, on_violation="halt")
+    d0 = diagnostics.to_dict(diagnostics.compute(geom, vg, cfg, st))
+    policy.check(d0, step=0, registry=reg)
+    per_step = []
+    for k in range(1, STEPS + 1):
+        with reg.timer("stage_time_us", stage="step"):
+            st, diag = diagnostics.step_with_diagnostics(geom, vg, cfg, st)
+            torch.cuda.synchronize()
+        d = diagnostics.to_dict(diag)
+        drift = {key: abs(d[key] - d0[key]) / abs(d0[key])
+                 for key in ("volume", "mass_T", "mass_S")}
+        log(f"observed step {k}: cfl_2d={d['cfl_2d']!r} (printed, not held) "
+            f"drift volume={drift['volume']:.3e} mass_T={drift['mass_T']:.3e} "
+            f"mass_S={drift['mass_S']:.3e} (held to {OBS_DRIFT_MAX:.0e}); "
+            f"speed_max={d['speed_max']:.4e} eta_max={d['eta_max']:.4e} "
+            f"nonfinite={d['nonfinite']}")
+        policy.check(d, step=k, registry=reg)
+        per_step.append(dict(cfl_2d=d["cfl_2d"], **drift))
+    reg.flush(step=STEPS)
+    metrics.configure(None)
+    problems = obs_smoke.check_jsonl(str(jsonl), STEPS)
+    if problems:
+        raise AssertionError(f"observed-step JSONL {jsonl}: {problems}")
+    log(f"observed step: {jsonl.relative_to(ROOT)} is schema-valid with "
+        "stage timings, physics diagnostics and kernel dispatch counters")
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs_smoke", "--device", "cuda",
+         "--run-dir", str(ROOT / "chiprun_out" / "obs_smoke")],
+        env=env, capture_output=True, text=True, timeout=600)
+    log(f"obs_smoke --device cuda: exit {res.returncode} in "
+        f"{time.perf_counter() - t0:.1f}s: {res.stdout.strip()} "
+        f"{res.stderr.strip()[-2000:]}")
+    if res.returncode != 0:
+        raise AssertionError(f"obs_smoke exited {res.returncode}")
+    return dict(per_step=per_step)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import cuda_lib
 
     # 1. device
@@ -342,19 +570,21 @@ def main() -> int:
     mres = phase_main_path(torch.float32)
     phase_main_path(torch.float64)
 
+    # 5. the observed step, float64
+    phase_observed()
+
     table = []
-    for name in PER_STEP:
-        label = {"solve_r": "K=2", "solve_w": "K=1", "block_thomas": "k=2",
-                 "lateral_flux": "k=4"}[name]
+    for name, label in TABLE_CASE.items():
         r32, r64 = kres[(name, label, "f32")], kres[(name, label, "f64")]
         table.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
             launches=mres["launches"][(name, "cuda")],
             max_abs_err=r32["max_abs_err"], ms=r32["ms"],
             plain_ms=r32["plain_ms"], bound_ms=r32["bound_ms"],
-            bound_by=r32["bound_by"], library_ms=None,
+            bound_by=r32["bound_by"], library_ms=r32["library_ms"],
             dtype="float32", shape=r32["shape"], case=label,
             ms_f64=r64["ms"], bound_ms_f64=r64["bound_ms"],
+            plain_ms_f64=r64["plain_ms"], library_ms_f64=r64["library_ms"],
             max_abs_err_f64=r64["max_abs_err"]))
     print(json.dumps({"kernels": table}))
     print(nvidia_smi())

@@ -26,6 +26,7 @@ import torch
 from . import dg2d, dg3d, eos, horizontal, turbulence, vertical
 from . import geometry as G
 from ..kernels import ops as kops
+from ..obs import trace
 from .dg2d import Forcing2D, State2D
 from .extrusion import (VGrid, expand2d, layer_geometry, mesh_velocity,
                         node_z, vsum_dofs)
@@ -170,133 +171,161 @@ def stage(geom: G.Geom2D, vg: VGrid, cfg: OceanConfig, st0: OceanState,
     vgee = layer_geometry(vg, eta_e, cfg.h_min)         # evaluation mesh
 
     # --- per-stage shared interpolations -------------------------------------
-    hc = horizontal.stage_cache(geom, vgee, cfg.h_min)
+    with trace.annotate("stage.edge_cache"):
+        hc = horizontal.stage_cache(geom, vgee, cfg.h_min)
 
     # --- density, pressure gradient r (matrix-free solve) -------------------
-    rho = eos.rho_prime(S_e, T_e, _pressure_dbar(vg, vgee), cfg.eos_kind)
-    F_r, r_s = dg3d.pressure_gradient_rhs(geom, vg, vgee, rho, hc)
-    r = kops.solve_r(geom, F_r, r_s, backend=cfg.backend)  # (2,nl,6,nt)
+    with trace.annotate("stage.pressure_gradient"):
+        rho = eos.rho_prime(S_e, T_e, _pressure_dbar(vg, vgee), cfg.eos_kind)
+        F_r, r_s = dg3d.pressure_gradient_rhs(geom, vg, vgee, rho, hc)
+        r = kops.solve_r(geom, F_r, r_s, backend=cfg.backend)  # (2,nl,6,nt)
 
     # --- component 1: horizontal flux prediction (with q, not qbar) ---------
-    q = dg3d.transport_from_velocity(vgee, ux_e, uy_e)
-    tc_pred = horizontal.transport_cache(geom, hc, q[0], q[1])
-    nu_h = dg3d.smagorinsky_nu(geom, ux_e, uy_e, cfg.cs_smag)
-    u_pair = torch.stack([ux_e, uy_e])
-    # FieldStates of the evaluation velocity + its diffusion term, built
-    # ONCE: the prediction and the momentum update share them
-    fs_u = dg3d.field_states(geom, u_pair, bc_reflect=True)
-    diff_u = dg3d.horizontal_diffusion(geom, vgee, nl, u_pair, nu_h, hc, fs_u)
-    f3h_pred = dg3d.horizontal_advection(
-        geom, vgee, nl, u_pair, q[0], q[1], tc_pred.flux, tc_pred, fs_u,
-        backend=cfg.backend) + diff_u
-    f3h_pred = f3h_pred + _momentum_extra(geom, vgee, cfg, r, ux_e, uy_e)
+    with trace.annotate("stage.flux_prediction"):
+        q = dg3d.transport_from_velocity(vgee, ux_e, uy_e)
+        tc_pred = horizontal.transport_cache(geom, hc, q[0], q[1])
+        nu_h = dg3d.smagorinsky_nu(geom, ux_e, uy_e, cfg.cs_smag)
+        u_pair = torch.stack([ux_e, uy_e])
+        # FieldStates of the evaluation velocity + its diffusion term, built
+        # ONCE: the prediction and the momentum update share them
+        fs_u = dg3d.field_states(geom, u_pair, bc_reflect=True)
+        diff_u = dg3d.horizontal_diffusion(geom, vgee, nl, u_pair, nu_h, hc,
+                                           fs_u)
+        f3h_pred = dg3d.horizontal_advection(
+            geom, vgee, nl, u_pair, q[0], q[1], tc_pred.flux, tc_pred, fs_u,
+            backend=cfg.backend) + diff_u
+        f3h_pred = f3h_pred + _momentum_extra(geom, vgee, cfg, r, ux_e, uy_e)
 
-    # F_3D->2D: vertical sum + wind + (predicted) bottom drag
-    drag = _bottom_drag_coeff(cfg, ux_e, uy_e)
-    dq = G.vol_interp(drag)
-    ubq = G.vol_interp(ux_e[-1, 3:6, :])
-    vbq = G.vol_interp(uy_e[-1, 3:6, :])
-    f3d2d_x = vsum_dofs(f3h_pred[0]) - G.vol_scatter(geom, dq * ubq)
-    f3d2d_y = vsum_dofs(f3h_pred[1]) - G.vol_scatter(geom, dq * vbq)
-    if forcing.tau_x is not None:
-        f3d2d_x = f3d2d_x + G.mass_apply(geom, forcing.tau_x)
-        f3d2d_y = f3d2d_y + G.mass_apply(geom, forcing.tau_y)
+        # F_3D->2D: vertical sum + wind + (predicted) bottom drag
+        drag = _bottom_drag_coeff(cfg, ux_e, uy_e)
+        dq = G.vol_interp(drag)
+        ubq = G.vol_interp(ux_e[-1, 3:6, :])
+        vbq = G.vol_interp(uy_e[-1, 3:6, :])
+        f3d2d_x = vsum_dofs(f3h_pred[0]) - G.vol_scatter(geom, dq * ubq)
+        f3d2d_y = vsum_dofs(f3h_pred[1]) - G.vol_scatter(geom, dq * vbq)
+        if forcing.tau_x is not None:
+            f3d2d_x = f3d2d_x + G.mass_apply(geom, forcing.tau_x)
+            f3d2d_y = f3d2d_y + G.mass_apply(geom, forcing.tau_y)
 
     # --- component 2: external mode burst ------------------------------------
-    ext = dg2d.run_external(geom, vg.b, st0.ext, dtau, m_sub,
-                            forcing.forcing2d, f3d2d_x, f3d2d_y,
-                            h_min=cfg.h_min)
-    eta1 = ext.state.eta
-    vge1 = layer_geometry(vg, eta1, cfg.h_min)
+    with trace.annotate("stage.external_burst"):
+        ext = dg2d.run_external(geom, vg.b, st0.ext, dtau, m_sub,
+                                forcing.forcing2d, f3d2d_x, f3d2d_y,
+                                h_min=cfg.h_min)
+        eta1 = ext.state.eta
+        vge1 = layer_geometry(vg, eta1, cfg.h_min)
 
     # --- component 3: turbulence ---------------------------------------------
-    dz = torch.clamp(vgee.H.mean(dim=0, keepdim=True), min=cfg.h_min) / nl
-    if cfg.use_gls and implicit:
-        m2, n2 = turbulence.shear_and_buoyancy(ux_e, uy_e, rho, dz)
-        turb1 = turbulence.gls_step(turb_base, m2, n2, dz, dtau)
-    else:
-        turb1 = turb0
-    turb_used = turb1 if implicit else turb0
-    kv = turbulence.to_nodes(turb_used.nu_t) + cfg.nu_v_bg
-    kap = turbulence.to_nodes(turb_used.kappa_t) + cfg.kappa_v_bg
+    with trace.annotate("stage.turbulence"):
+        dz = torch.clamp(vgee.H.mean(dim=0, keepdim=True), min=cfg.h_min) / nl
+        if cfg.use_gls and implicit:
+            m2, n2 = turbulence.shear_and_buoyancy(ux_e, uy_e, rho, dz)
+            turb1 = turbulence.gls_step(turb_base, m2, n2, dz, dtau)
+        else:
+            turb1 = turb0
+        turb_used = turb1 if implicit else turb0
+        kv = turbulence.to_nodes(turb_used.nu_t) + cfg.nu_v_bg
+        kap = turbulence.to_nodes(turb_used.kappa_t) + cfg.kappa_v_bg
 
     # --- consistent transport, vertical velocity, mesh velocity --------------
-    qbar = dg3d.consistent_transport(vgee, ux_e, uy_e, ext.q_bar_x,
-                                     ext.q_bar_y, nl)
-    fb_kw = (dict(fbar_edge=ext.fbar_edge, qbar2d=(ext.q_bar_x, ext.q_bar_y))
-             if cfg.exact_consistency else {})
-    tc = horizontal.transport_cache(geom, hc, qbar[0], qbar[1], **fb_kw)
-    w_t = kops.solve_w(
-        geom, dg3d.continuity_rhs(geom, vgee, nl, qbar[0], qbar[1], tc.flux,
-                                  tc),
-        backend=cfg.backend)
+    with trace.annotate("stage.w_solve"):
+        qbar = dg3d.consistent_transport(vgee, ux_e, uy_e, ext.q_bar_x,
+                                         ext.q_bar_y, nl)
+        fb_kw = (dict(fbar_edge=ext.fbar_edge,
+                      qbar2d=(ext.q_bar_x, ext.q_bar_y))
+                 if cfg.exact_consistency else {})
+        tc = horizontal.transport_cache(geom, hc, qbar[0], qbar[1], **fb_kw)
+        w_t = kops.solve_w(
+            geom, dg3d.continuity_rhs(geom, vgee, nl, qbar[0], qbar[1],
+                                      tc.flux, tc),
+            backend=cfg.backend)
 
-    wm_i = mesh_velocity(vg, st0.ext.eta, eta1, dtau)    # (nl+1, 3, nt)
-    wm_nodes = torch.cat([wm_i[:-1], wm_i[1:]], dim=1)
-    wrel = w_t - wm_nodes
-    # interface advective speeds: value from BELOW each interface; floor: 0
-    wface = torch.cat([w_t[:, 0:3, :] - wm_i[:-1],
-                       torch.zeros_like(w_t[:1, 0:3, :])], dim=0)
+        wm_i = mesh_velocity(vg, st0.ext.eta, eta1, dtau)    # (nl+1, 3, nt)
+        wm_nodes = torch.cat([wm_i[:-1], wm_i[1:]], dim=1)
+        wrel = w_t - wm_nodes
+        # interface advective speeds: value from BELOW each interface; floor: 0
+        wface = torch.cat([w_t[:, 0:3, :] - wm_i[:-1],
+                           torch.zeros_like(w_t[:1, 0:3, :])], dim=0)
 
     # --- components 4+5 horizontal RHS: momentum + tracers ------------------
-    kap_h = dg3d.okubo_kappa(geom, nl)
-    tr_pair = torch.stack([T_e, S_e])
-    open_vals = None
-    if forcing.T_open is not None:
-        open_vals = torch.stack([forcing.T_open, forcing.S_open])
-    f3h, f3h_tr = horizontal.advdiff_momentum_tracers(
-        geom, vgee, nl, u_pair, tr_pair, qbar[0], qbar[1], tc.flux,
-        nu_h, kap_h, hc, tc, fs_u=fs_u, diff_u=diff_u, open_tr=open_vals,
-        backend=cfg.backend)
+    with trace.annotate("stage.horizontal_rhs"):
+        kap_h = dg3d.okubo_kappa(geom, nl)
+        tr_pair = torch.stack([T_e, S_e])
+        open_vals = None
+        if forcing.T_open is not None:
+            open_vals = torch.stack([forcing.T_open, forcing.S_open])
+        f3h, f3h_tr = horizontal.advdiff_momentum_tracers(
+            geom, vgee, nl, u_pair, tr_pair, qbar[0], qbar[1], tc.flux,
+            nu_h, kap_h, hc, tc, fs_u=fs_u, diff_u=diff_u, open_tr=open_vals,
+            backend=cfg.backend)
 
     # --- component 4: momentum update ----------------------------------------
-    f3h = f3h + _momentum_extra(geom, vgee, cfg, r, ux_e, uy_e)
-    # ONE mass-blocks assembly per stage, shared by the two implicit solves
-    M1b = vertical.mass_blocks(geom, vge1.jz, nl) if implicit else None
+    with trace.annotate("stage.momentum_update"):
+        f3h = f3h + _momentum_extra(geom, vgee, cfg, r, ux_e, uy_e)
+        # ONE mass-blocks assembly per stage, shared by the two implicit solves
+        M1b = vertical.mass_blocks(geom, vge1.jz, nl) if implicit else None
 
-    H1 = torch.clamp(eta1 + vg.b, min=cfg.h_min)
-    f2d_term = torch.stack([
-        vertical.mass_apply3d(geom, vge1.jz, expand2d(ext.f2d_x / H1, nl)),
-        vertical.mass_apply3d(geom, vge1.jz, expand2d(ext.f2d_y / H1, nl))])
-    m0u = torch.stack([vertical.mass_apply3d(geom, vge0.jz, st0.ux),
-                       vertical.mass_apply3d(geom, vge0.jz, st0.uy)])
-    wind = torch.stack([_wind_rhs(geom, forcing.tau_x, f3h[0]),
-                        _wind_rhs(geom, forcing.tau_y, f3h[1])])
-    rhs_u = m0u + dtau * (f3h + f2d_term + wind)
+        H1 = torch.clamp(eta1 + vg.b, min=cfg.h_min)
+        f2d_term = torch.stack([
+            vertical.mass_apply3d(geom, vge1.jz, expand2d(ext.f2d_x / H1, nl)),
+            vertical.mass_apply3d(geom, vge1.jz, expand2d(ext.f2d_y / H1, nl))])
+        m0u = torch.stack([vertical.mass_apply3d(geom, vge0.jz, st0.ux),
+                           vertical.mass_apply3d(geom, vge0.jz, st0.uy)])
+        wind = torch.stack([_wind_rhs(geom, forcing.tau_x, f3h[0]),
+                            _wind_rhs(geom, forcing.tau_y, f3h[1])])
+        rhs_u = m0u + dtau * (f3h + f2d_term + wind)
 
-    A_u = vertical.assemble_vertical_operator(
-        geom, nl, vgee.jz, wrel, wface, kv, vgee.H, drag_coeff=drag)
-    if implicit:
-        sys = vertical.implicit_system(M1b, A_u, dtau)
-        u1 = kops.block_thomas(sys, rhs_u, backend=cfg.backend)
-    else:
-        f3v = vertical.blocks_matvec(A_u, torch.stack([ux_e, uy_e]))
-        u1 = vertical.mass_solve3d(geom, vge1.jz, rhs_u + dtau * f3v)
-    del A_u
+        A_u = vertical.assemble_vertical_operator(
+            geom, nl, vgee.jz, wrel, wface, kv, vgee.H, drag_coeff=drag)
+        if implicit:
+            sys = vertical.implicit_system(M1b, A_u, dtau)
+            u1 = kops.block_thomas(sys, rhs_u, backend=cfg.backend)
+        else:
+            f3v = vertical.blocks_matvec(A_u, torch.stack([ux_e, uy_e]))
+            u1 = vertical.mass_solve3d(geom, vge1.jz, rhs_u + dtau * f3v)
+        del A_u
 
     # --- component 5: tracers (T & S solved together) -------------------------
-    m0tr = torch.stack([vertical.mass_apply3d(geom, vge0.jz, st0.T),
-                        vertical.mass_apply3d(geom, vge0.jz, st0.S)])
-    rhs_tr = m0tr + dtau * f3h_tr
-    A_tr = vertical.assemble_vertical_operator(
-        geom, nl, vgee.jz, wrel, wface, kap, vgee.H, drag_coeff=None)
-    if implicit:
-        sysT = vertical.implicit_system(M1b, A_tr, dtau)
-        tr1 = kops.block_thomas(sysT, rhs_tr, backend=cfg.backend)
-    else:
-        f3v_tr = vertical.blocks_matvec(A_tr, tr_pair)
-        tr1 = vertical.mass_solve3d(geom, vge1.jz, rhs_tr + dtau * f3v_tr)
+    with trace.annotate("stage.tracer_update"):
+        m0tr = torch.stack([vertical.mass_apply3d(geom, vge0.jz, st0.T),
+                            vertical.mass_apply3d(geom, vge0.jz, st0.S)])
+        rhs_tr = m0tr + dtau * f3h_tr
+        A_tr = vertical.assemble_vertical_operator(
+            geom, nl, vgee.jz, wrel, wface, kap, vgee.H, drag_coeff=None)
+        if implicit:
+            sysT = vertical.implicit_system(M1b, A_tr, dtau)
+            tr1 = kops.block_thomas(sysT, rhs_tr, backend=cfg.backend)
+        else:
+            f3v_tr = vertical.blocks_matvec(A_tr, tr_pair)
+            tr1 = vertical.mass_solve3d(geom, vge1.jz, rhs_tr + dtau * f3v_tr)
 
     if cfg.use_gls and not implicit:
         # explicit steps update turbulence last (paper Fig. 2a caption),
         # advancing from turb_base (t0) with end-of-step shear/buoyancy
-        rho1 = eos.rho_prime(tr1[1], tr1[0], _pressure_dbar(vg, vge1),
-                             cfg.eos_kind)
-        m2, n2 = turbulence.shear_and_buoyancy(u1[0], u1[1], rho1, dz)
-        turb1 = turbulence.gls_step(turb_base, m2, n2, dz, dtau)
+        with trace.annotate("stage.turbulence_final"):
+            rho1 = eos.rho_prime(tr1[1], tr1[0], _pressure_dbar(vg, vge1),
+                                 cfg.eos_kind)
+            m2, n2 = turbulence.shear_and_buoyancy(u1[0], u1[1], rho1, dz)
+            turb1 = turbulence.gls_step(turb_base, m2, n2, dz, dtau)
 
     return StageOut(ext=ext.state, ux=u1[0], uy=u1[1], T=tr1[0], S=tr1[1],
                     turb=turb1, r=r, w_tilde=w_t)
+
+
+def state_to_cell(st: OceanState, backend: Optional[str] = None) -> dict:
+    """Cell-layout (nc, nl*6, 128) copies of the 3D prognostic fields through
+    the cell-transpose kernel: the step-boundary transform (paper §2.1.2) for
+    cell-major storage and I/O.  The step itself runs in the SoA layout."""
+    f = lambda x: kops.soa_to_cell(x, backend=backend)
+    return {"ux": f(st.ux), "uy": f(st.uy), "T": f(st.T), "S": f(st.S)}
+
+
+def state_from_cell(st: OceanState, cells: dict, nt: int,
+                    backend: Optional[str] = None) -> OceanState:
+    """Rebuild the SoA prognostic fields from state_to_cell output."""
+    f = lambda x: kops.cell_to_soa(x, nt, backend=backend)
+    return dataclasses.replace(st, ux=f(cells["ux"]), uy=f(cells["uy"]),
+                               T=f(cells["T"]), S=f(cells["S"]))
 
 
 def step(geom: G.Geom2D, vg: VGrid, cfg: OceanConfig, st: OceanState,
@@ -305,13 +334,15 @@ def step(geom: G.Geom2D, vg: VGrid, cfg: OceanConfig, st: OceanState,
     """One full internal step: IMEX midpoint (stage 1 implicit over dt/2,
     stage 2 explicit over dt with midpoint fluxes)."""
     turb0 = turbulence.TurbState(st.turb_k, st.turb_eps, st.nu_t, st.kappa_t)
-    s1 = stage(geom, vg, cfg, st, st.ux, st.uy, st.T, st.S, st.ext.eta,
-               turb0, cfg.dt / 2, max(cfg.m_2d // 2, 1),
-               cfg.implicit_stage1, forcing,
-               exchange2d=exchange2d, exchange_field=exchange_field)
-    s2 = stage(geom, vg, cfg, st, s1.ux, s1.uy, s1.T, s1.S, s1.ext.eta,
-               s1.turb, cfg.dt, cfg.m_2d, False, forcing, turb_base=turb0,
-               exchange2d=exchange2d, exchange_field=exchange_field)
+    with trace.annotate("imex.stage1"):
+        s1 = stage(geom, vg, cfg, st, st.ux, st.uy, st.T, st.S, st.ext.eta,
+                   turb0, cfg.dt / 2, max(cfg.m_2d // 2, 1),
+                   cfg.implicit_stage1, forcing,
+                   exchange2d=exchange2d, exchange_field=exchange_field)
+    with trace.annotate("imex.stage2"):
+        s2 = stage(geom, vg, cfg, st, s1.ux, s1.uy, s1.T, s1.S, s1.ext.eta,
+                   s1.turb, cfg.dt, cfg.m_2d, False, forcing, turb_base=turb0,
+                   exchange2d=exchange2d, exchange_field=exchange_field)
     return OceanState(
         ext=s2.ext, ux=s2.ux, uy=s2.uy, T=s2.T, S=s2.S,
         turb_k=s2.turb.k, turb_eps=s2.turb.eps, nu_t=s2.turb.nu_t,

@@ -86,13 +86,27 @@ def shear_and_buoyancy(ux: torch.Tensor, uy: torch.Tensor, rho_p: torch.Tensor,
     return m2, n2
 
 
+def diffusion_system(nu_t: torch.Tensor, dz: torch.Tensor, dt: float,
+                     sigma: float):
+    """The implicit vertical diffusion system (1 - dt d/dz nu/sigma d/dz) of
+    one GLS variable: (lo, d, up), each (nl, nt), for `thomas_solve`."""
+    nl, nt = nu_t.shape
+    nu_i = 0.5 * (nu_t[:-1] + nu_t[1:]) / sigma             # interfaces
+    dzc = dz.expand(nl, nt)
+    dzi = 0.5 * (dzc[:-1] + dzc[1:])
+    w = nu_i / dzi                                          # (nl-1, nt)
+    zero = torch.zeros((1, nt), dtype=nu_t.dtype, device=nu_t.device)
+    lo = torch.cat([zero, -dt * w]) / dzc
+    up = torch.cat([-dt * w, zero]) / dzc
+    return lo, 1.0 - lo - up, up
+
+
 def gls_step(ts: TurbState, m2: torch.Tensor, n2: torch.Tensor,
              dz: torch.Tensor, dt: float, params: GLSParams = GLSParams(),
              surf_k: float = 0.0) -> TurbState:
     """Advance k-eps one step: semi-implicit sources + implicit vertical
     diffusion (tridiagonal per column)."""
     p = params
-    nl, nt = ts.k.shape
     k0 = torch.clamp(ts.k, min=p.k_min)
     e0 = torch.clamp(ts.eps, min=p.eps_min)
 
@@ -109,14 +123,7 @@ def gls_step(ts: TurbState, m2: torch.Tensor, n2: torch.Tensor,
 
     # --- implicit vertical diffusion (tridiagonal per column) ---------------
     def diffuse(f, sigma):
-        nu_i = 0.5 * (ts.nu_t[:-1] + ts.nu_t[1:]) / sigma   # interfaces
-        dzc = dz.expand(f.shape)
-        dzi = 0.5 * (dzc[:-1] + dzc[1:])
-        w = nu_i / dzi                                      # (nl-1, nt)
-        zero = torch.zeros((1, nt), dtype=f.dtype, device=f.device)
-        lo = torch.cat([zero, -dt * w]) / dzc
-        up = torch.cat([-dt * w, zero]) / dzc
-        return thomas_solve(lo, 1.0 - lo - up, up, f)
+        return thomas_solve(*diffusion_system(ts.nu_t, dz, dt, sigma), f)
 
     k1 = torch.clamp(diffuse(k_src, p.sigma_k), min=p.k_min)
     e1 = torch.clamp(diffuse(e_src, p.sigma_e), min=p.eps_min)

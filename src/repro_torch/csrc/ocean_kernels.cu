@@ -1,18 +1,20 @@
-// Hand-written Hopper (sm_90a) kernels of the ocean step's hot path.
+// Hand-written Hopper (sm_90a) kernels of the ocean step and its step
+// boundary.
 //
-// Four kernels, each templated on float / double, each launched through an
+// Seven kernels, each templated on float / double, each launched through an
 // extern "C" function that returns the cudaError_t of the launch (the value
 // of cudaGetLastError() right after it).  The Python wrappers in
-// repro_torch/kernels/{matrix_free,column_solve,horizontal_flux}.py check
-// shapes, dtypes and contiguity, allocate every output and scratch buffer,
-// and pass the current PyTorch stream; the kernels never synchronise and
-// allocate nothing.
+// repro_torch/kernels/{matrix_free,column_solve,horizontal_flux,
+// cell_transpose,tridiag}.py check shapes, dtypes and contiguity, allocate
+// every output and scratch buffer, and pass the current PyTorch stream; the
+// kernels never synchronise and allocate nothing.
 //
-// Layout: every tensor is the stepper's own structure-of-arrays layout with
-// the triangle index nt innermost, so one thread per triangle column reads
-// neighbouring addresses across a warp (coalesced).  There is no cell
-// layout and no 128-column padding: a ragged last block is masked with
-// `if (idx >= n) return;`.
+// Layout: K1-K4 and K7 take the stepper's own structure-of-arrays layout
+// with the column (triangle) index innermost, so one thread per column reads
+// neighbouring addresses across a warp (coalesced), and a ragged last block
+// is masked with `if (idx >= n) return;` instead of 128-column padding.
+// K5/K6 convert between that layout and the 128-column cell layout
+// (n_cells, rows, 128) of the step boundary.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas -v -o libocean_kernels.so ocean_kernels.cu
@@ -335,6 +337,87 @@ lateral_flux_kernel(const T* __restrict__ f, const T* __restrict__ fext,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5 / K6: SoA <-> cell layout (the step-boundary transform, paper §2.1.2).
+//
+// Replace the TPU kernels repro/kernels/cell_transpose.py::soa_to_cell
+// (_to_cell_kernel) and ::cell_to_soa (_from_cell_kernel).
+// Bound on the H100: memory.  A pure copy: each element is read once and
+// written once, no arithmetic.  In memory the transform is a block
+// permutation, not a transpose: row r (= layer*6 + node) of the SoA field is
+// cut into 128-wide segments and segment c lands at row r of cell c, so a
+// 128-element run is contiguous on both sides.  Design: a block of
+// 128 x kRowsPerBlock threads copies kRowsPerBlock such runs of one cell,
+// thread x walking the run, so neighbouring threads touch neighbouring
+// addresses on both sides.  The pad lanes of the last cell (column >= nt)
+// are written as zeros by K5 and skipped by K6: the bounds check replaces
+// the TPU version's separate padding pass (layout.pad_nt).
+// ---------------------------------------------------------------------------
+constexpr int kCell = 128;
+constexpr int kRowsPerBlock = 4;
+
+template <typename T>
+__global__ void __launch_bounds__(kCell * kRowsPerBlock)
+soa_to_cell_kernel(const T* __restrict__ x, T* __restrict__ out,
+                   int64_t rows, int64_t nt) {
+  const int64_t c = blockIdx.x;
+  const int64_t r = static_cast<int64_t>(blockIdx.y) * kRowsPerBlock + threadIdx.y;
+  if (r >= rows) return;
+  const int64_t col = c * kCell + threadIdx.x;
+  out[(c * rows + r) * kCell + threadIdx.x] = col < nt ? x[r * nt + col] : T(0);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kCell * kRowsPerBlock)
+cell_to_soa_kernel(const T* __restrict__ x, T* __restrict__ out,
+                   int64_t rows, int64_t nt) {
+  const int64_t c = blockIdx.x;
+  const int64_t r = static_cast<int64_t>(blockIdx.y) * kRowsPerBlock + threadIdx.y;
+  const int64_t col = c * kCell + threadIdx.x;
+  if (r >= rows || col >= nt) return;
+  out[r * nt + col] = x[(c * rows + r) * kCell + threadIdx.x];
+}
+
+// ---------------------------------------------------------------------------
+// K7: scalar tridiagonal (Thomas) solve per column, nl layers.
+//
+// Replaces the TPU kernel repro/kernels/tridiag.py::tridiag_cell
+// (_tridiag_kernel).
+// Bound on the H100: memory.  Per column and layer it reads 4 values
+// (dl, d, du, b) and writes 1, with ~8 flops and 2 divisions: far below the
+// ridge.  Design: one thread per column walks the layers, as the Pallas
+// kernel walks rows; cp goes to a global scratch laid out (nl, C) like the
+// operands, so every access is coalesced across the warp; dp is written to
+// the output and overwritten in place by x in the backward sweep, as the
+// Pallas kernel does with x_ref / cp_ref.  Any C is taken: the ragged last
+// block is masked, where the TPU version needs C % 128 == 0.  dl[0] and
+// du[nl-1] are ignored (dl[0] multiplies a zero carry).
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+tridiag_kernel(const T* __restrict__ dl, const T* __restrict__ d,
+               const T* __restrict__ du, const T* __restrict__ b,
+               T* __restrict__ x, T* __restrict__ cp_s, int64_t nl, int64_t C) {
+  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (t >= C) return;
+  T cp = T(0), dp = T(0);
+  for (int64_t l = 0; l < nl; ++l) {
+    const int64_t i = l * C + t;
+    const T a = dl[i];
+    const T denom = d[i] - a * cp;
+    cp = du[i] / denom;
+    dp = (b[i] - a * dp) / denom;
+    cp_s[i] = cp;
+    x[i] = dp;
+  }
+  T xn = dp;
+  for (int64_t l = nl - 2; l >= 0; --l) {
+    const int64_t i = l * C + t;
+    xn = x[i] - cp_s[i] * xn;
+    x[i] = xn;
+  }
+}
+
 template <typename T>
 int launch_solve_r(const void* F, const void* area, const void* r_surf,
                    void* out, int64_t K, int64_t nl, int64_t nt, void* stream) {
@@ -403,6 +486,32 @@ int launch_lateral_flux(const void* f, const void* fext, const void* speed,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_cell_transpose(bool to_cell, const void* x, void* out, int64_t rows,
+                          int64_t nt, void* stream) {
+  const dim3 block(kCell, kRowsPerBlock);
+  const dim3 grid(static_cast<unsigned>((nt + kCell - 1) / kCell),
+                  static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock));
+  if (to_cell)
+    soa_to_cell_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), static_cast<T*>(out), rows, nt);
+  else
+    cell_to_soa_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), static_cast<T*>(out), rows, nt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_tridiag(const void* dl, const void* d, const void* du, const void* b,
+                   void* x, void* cp, int64_t nl, int64_t C, void* stream) {
+  tridiag_kernel<T><<<grid_for(C), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(dl), static_cast<const T*>(d),
+      static_cast<const T*>(du), static_cast<const T*>(b),
+      static_cast<T*>(x), static_cast<T*>(cp), nl, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -433,6 +542,19 @@ const char* ocean_error_string(int err) {
                             int64_t k, int64_t nl, int64_t nt, void* stream) {  \
     return launch_lateral_flux<T>(f, fext, speed, edge_len, out, consts,        \
                                   edges, k, nl, nt, stream);                    \
+  }                                                                             \
+  int soa_to_cell_##SUFFIX(const void* x, void* out, int64_t rows, int64_t nt,  \
+                           void* stream) {                                      \
+    return launch_cell_transpose<T>(true, x, out, rows, nt, stream);            \
+  }                                                                             \
+  int cell_to_soa_##SUFFIX(const void* x, void* out, int64_t rows, int64_t nt,  \
+                           void* stream) {                                      \
+    return launch_cell_transpose<T>(false, x, out, rows, nt, stream);           \
+  }                                                                             \
+  int tridiag_##SUFFIX(const void* dl, const void* d, const void* du,           \
+                       const void* b, void* x, void* cp, int64_t nl, int64_t C, \
+                       void* stream) {                                          \
+    return launch_tridiag<T>(dl, d, du, b, x, cp, nl, C, stream);               \
   }
 
 OCEAN_LAUNCHERS(float, f32)

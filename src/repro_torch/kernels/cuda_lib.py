@@ -37,6 +37,9 @@ _ARGTYPES = {
     "solve_w": [_P, _P, _P, _P, _I, _I, _I, _P],
     "block_thomas": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "lateral_flux": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "soa_to_cell": [_P, _P, _I, _I, _P],
+    "cell_to_soa": [_P, _P, _I, _I, _P],
+    "tridiag": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 

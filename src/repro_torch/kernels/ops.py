@@ -1,26 +1,69 @@
 """Ocean-path entry points of the kernels, with backend dispatch.
 
-Each op takes the stepper's SoA shapes and routes by `dispatch.Backend`:
+Each op routes by `dispatch.Backend`:
 
-  * ref   — the plain column solvers of `core/vertical.py`,
+  * ref   — the plain column solvers of `core/` (`kernels/ref.py` for the
+            cell-layout ops),
   * plain — the kernel's plain PyTorch version (same shapes as the kernel),
   * cuda  — the hand-written CUDA kernel.
 
-The kernels take the SoA tensors as the stepper holds them: a leading
-component axis is part of the kernel's thread index, so no fold / tile
-copies are made.  ``LAUNCHES[(op, backend)]`` counts calls: the CUDA
-wrappers count their own launches, this module counts ref and plain calls.
+Two families of signatures, as in the JAX package:
+
+  * SoA (the stepper's hot path): `solve_r`, `solve_w`, `block_thomas`,
+    `lateral_flux_term` take the stepper's (..., nl, 6, nt) tensors; a
+    leading component axis is part of the kernel's thread index, so no
+    fold / tile copies are made.
+  * cell layout: `tridiag`, `solve_r_cell`, `solve_w_cell`,
+    `block_thomas_cell` take (rows, C) column operands, and `soa_to_cell` /
+    `cell_to_soa` convert a field between the layouts.  (nl*6, C) row-major
+    is (nl, 6, C), so the matrix-free kernels take it as a view.
+
+Every call goes through `_dispatch(op, backend)`, which adds one to the
+default metrics registry's ``kernel_dispatch{op=..., backend=...}`` counter
+and opens the range ``kops.<op>.<backend>`` (`obs/trace.py`).
+``LAUNCHES[(kernel, backend)]`` counts kernel calls by the name of the
+kernel (`KERNEL[op]`): the CUDA wrappers count their own launches, and
+`_dispatch` counts the ref and plain calls, so each call adds one to each
+counter.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 
-from . import column_solve, dispatch, horizontal_flux, matrix_free
+from . import cell_transpose, column_solve, dispatch, horizontal_flux
+from . import matrix_free
+from . import ref as _ref
+from . import tridiag as _tridiag
 from .dispatch import LAUNCHES, Backend, reset_launches  # noqa: F401
+from ..obs import metrics as _metrics
+from ..obs import trace as _trace
+
+# the kernel each op runs, by the name LAUNCHES counts it under
+KERNEL = {
+    "solve_r": "solve_r", "solve_r_cell": "solve_r",
+    "solve_w": "solve_w", "solve_w_cell": "solve_w",
+    "block_thomas": "block_thomas", "block_thomas_cell": "block_thomas",
+    "lateral_flux": "lateral_flux", "tridiag": "tridiag",
+    "soa_to_cell": "soa_to_cell", "cell_to_soa": "cell_to_soa",
+}
 
 
+@contextlib.contextmanager
+def _dispatch(op: str, bk: Backend):
+    """Count the dispatch and name it in profiler timelines."""
+    _metrics.default().counter("kernel_dispatch", op=op, backend=bk.value).inc()
+    if bk is not Backend.CUDA:
+        LAUNCHES[(KERNEL[op], bk.value)] += 1
+    with _trace.annotate(f"kops.{op}.{bk.value}"):
+        yield
+
+
+# ---------------------------------------------------------------------------
+# SoA signatures (the stepper hot path)
+# ---------------------------------------------------------------------------
 def _components(F: torch.Tensor, bc):
     """(..., nl, 6, nt) -> (K, nl, 6, nt) and bc (..., 3, nt) -> (K, 3, nt)."""
     *lead, nl, six, nt = F.shape
@@ -35,16 +78,15 @@ def solve_r(geom, F, r_surf, backend: dispatch.BackendLike = None):
     """Matrix-free D_vu solve: F (..., nl, 6, nt); r_surf (..., 3, nt)."""
     from ..core import vertical
     bk = dispatch.resolve(backend, F.device)
-    if bk is Backend.REF:
-        LAUNCHES[("solve_r", "ref")] += 1
-        return vertical.solve_r(geom, F, r_surf)
-    Fk, bc = _components(F, r_surf)
-    if bk is Backend.PLAIN:
-        LAUNCHES[("solve_r", "plain")] += 1
-        out = matrix_free.solve_r_plain(Fk, geom.area, bc)
-    else:
-        out = matrix_free.solve_r(Fk, geom.area, bc)
-    return out.reshape(F.shape)
+    with _dispatch("solve_r", bk):
+        if bk is Backend.REF:
+            return vertical.solve_r(geom, F, r_surf)
+        Fk, bc = _components(F, r_surf)
+        if bk is Backend.PLAIN:
+            out = matrix_free.solve_r_plain(Fk, geom.area, bc)
+        else:
+            out = matrix_free.solve_r(Fk, geom.area, bc)
+        return out.reshape(F.shape)
 
 
 def solve_w(geom, F, w_floor=None, backend: dispatch.BackendLike = None):
@@ -52,16 +94,15 @@ def solve_w(geom, F, w_floor=None, backend: dispatch.BackendLike = None):
     None (impermeable floor)."""
     from ..core import vertical
     bk = dispatch.resolve(backend, F.device)
-    if bk is Backend.REF:
-        LAUNCHES[("solve_w", "ref")] += 1
-        return vertical.solve_w(geom, F, w_floor)
-    Fk, bc = _components(F, w_floor)
-    if bk is Backend.PLAIN:
-        LAUNCHES[("solve_w", "plain")] += 1
-        out = matrix_free.solve_w_plain(Fk, geom.area, bc)
-    else:
-        out = matrix_free.solve_w(Fk, geom.area, bc)
-    return out.reshape(F.shape)
+    with _dispatch("solve_w", bk):
+        if bk is Backend.REF:
+            return vertical.solve_w(geom, F, w_floor)
+        Fk, bc = _components(F, w_floor)
+        if bk is Backend.PLAIN:
+            out = matrix_free.solve_w_plain(Fk, geom.area, bc)
+        else:
+            out = matrix_free.solve_w(Fk, geom.area, bc)
+        return out.reshape(F.shape)
 
 
 def block_thomas(blocks, rhs, backend: dispatch.BackendLike = None):
@@ -69,14 +110,13 @@ def block_thomas(blocks, rhs, backend: dispatch.BackendLike = None):
     rhs (k, nl, 6, nt)."""
     from ..core import vertical
     bk = dispatch.resolve(backend, rhs.device)
-    if bk is Backend.REF:
-        LAUNCHES[("block_thomas", "ref")] += 1
-        return vertical.block_thomas_solve(blocks, rhs)
-    if bk is Backend.PLAIN:
-        LAUNCHES[("block_thomas", "plain")] += 1
-        return column_solve.block_thomas_plain(*blocks, rhs)
-    lo, dg, up = (b.contiguous() for b in blocks)
-    return column_solve.block_thomas(lo, dg, up, rhs.contiguous())
+    with _dispatch("block_thomas", bk):
+        if bk is Backend.REF:
+            return vertical.block_thomas_solve(blocks, rhs)
+        if bk is Backend.PLAIN:
+            return column_solve.block_thomas_plain(*blocks, rhs)
+        lo, dg, up = (b.contiguous() for b in blocks)
+        return column_solve.block_thomas(lo, dg, up, rhs.contiguous())
 
 
 def lateral_flux_term(geom, f, fext, speed,
@@ -88,8 +128,93 @@ def lateral_flux_term(geom, f, fext, speed,
     signed normal flux speed shared by the k fields.  Returns (k, nl, 6, nt).
     The ref backend runs the plain version, as it has no other form."""
     bk = dispatch.resolve(backend, f.device)
-    if bk is not Backend.CUDA:
-        LAUNCHES[("lateral_flux", bk.value)] += 1
-        return horizontal_flux.lateral_flux_plain(f, fext, speed, geom.edge_len)
-    return horizontal_flux.lateral_flux(f.contiguous(), fext.contiguous(),
-                                        speed.contiguous(), geom.edge_len)
+    with _dispatch("lateral_flux", bk):
+        if bk is not Backend.CUDA:
+            return horizontal_flux.lateral_flux_plain(f, fext, speed,
+                                                      geom.edge_len)
+        return horizontal_flux.lateral_flux(f.contiguous(), fext.contiguous(),
+                                            speed.contiguous(), geom.edge_len)
+
+
+# ---------------------------------------------------------------------------
+# cell-layout signatures (the JAX package's `ops.py:55-107`)
+# ---------------------------------------------------------------------------
+def tridiag(dl, d, du, b, backend: dispatch.BackendLike = None):
+    """Scalar tridiagonal solve of (nl, C) systems; dl[0], du[nl-1] ignored."""
+    bk = dispatch.resolve(backend, d.device)
+    with _dispatch("tridiag", bk):
+        if bk is Backend.REF:
+            return _ref.tridiag(dl, d, du, b)
+        if bk is Backend.PLAIN:
+            return _tridiag.tridiag_plain(dl, d, du, b)
+        return _tridiag.tridiag(*(t.contiguous() for t in (dl, d, du, b)))
+
+
+def _sweep_cell(op, ref_fn, plain_fn, kernel_fn, F, area, bc, backend):
+    """Shared dispatch of the matrix-free sweeps in cell layout: F (nl*6, C),
+    area (1, C), bc (3, C); the kernels see (1, nl, 6, C) views."""
+    bk = dispatch.resolve(backend, F.device)
+    with _dispatch(op, bk):
+        if bk is Backend.REF:
+            return ref_fn(F, area, bc)
+        rows, C = F.shape
+        Fk = F.reshape(1, rows // 6, 6, C)
+        a, bck = area.reshape(C), bc.reshape(1, 3, C)
+        if bk is Backend.PLAIN:
+            out = plain_fn(Fk, a, bck)
+        else:
+            out = kernel_fn(Fk.contiguous(), a.contiguous(), bck.contiguous())
+        return out.reshape(rows, C)
+
+
+def solve_r_cell(F, area, r_surf, backend: dispatch.BackendLike = None):
+    """Matrix-free D_vu solve in cell layout: F (nl*6, C), area (1, C),
+    r_surf (3, C)."""
+    return _sweep_cell("solve_r_cell", _ref.solve_r_cell,
+                       matrix_free.solve_r_plain, matrix_free.solve_r,
+                       F, area, r_surf, backend)
+
+
+def solve_w_cell(F, area, w_floor, backend: dispatch.BackendLike = None):
+    """Matrix-free D_vd solve in cell layout: F (nl*6, C), area (1, C),
+    w_floor (3, C)."""
+    return _sweep_cell("solve_w_cell", _ref.solve_w_cell,
+                       matrix_free.solve_w_plain, matrix_free.solve_w,
+                       F, area, w_floor, backend)
+
+
+def block_thomas_cell(lo, dg, up, b, backend: dispatch.BackendLike = None):
+    """Block-tridiagonal solve: lo/dg/up (nl, 6, 6, C), b (nl, 6, k, C)."""
+    bk = dispatch.resolve(backend, b.device)
+    with _dispatch("block_thomas_cell", bk):
+        if bk is Backend.REF:
+            return _ref.block_thomas_cell(lo, dg, up, b)
+        rhs = torch.movedim(b, 2, 0).contiguous()          # (k, nl, 6, C)
+        if bk is Backend.PLAIN:
+            x = column_solve.block_thomas_plain(lo, dg, up, rhs)
+        else:
+            x = column_solve.block_thomas(lo.contiguous(), dg.contiguous(),
+                                          up.contiguous(), rhs)
+        return torch.movedim(x, 0, 2)
+
+
+def soa_to_cell(x, backend: dispatch.BackendLike = None):
+    """(nl, 6, nt) -> (ceil(nt/128), nl*6, 128), zero-padding nt."""
+    bk = dispatch.resolve(backend, x.device)
+    with _dispatch("soa_to_cell", bk):
+        if bk is Backend.REF:
+            return _ref.soa_to_cell(x)
+        if bk is Backend.PLAIN:
+            return cell_transpose.soa_to_cell_plain(x)
+        return cell_transpose.soa_to_cell(x.contiguous())
+
+
+def cell_to_soa(x, nt, backend: dispatch.BackendLike = None):
+    """(nc, nl*6, 128) -> (nl, 6, nt), slicing the padding off."""
+    bk = dispatch.resolve(backend, x.device)
+    with _dispatch("cell_to_soa", bk):
+        if bk is Backend.REF:
+            return _ref.cell_to_soa(x, nt)
+        if bk is Backend.PLAIN:
+            return cell_transpose.cell_to_soa_plain(x, nt)
+        return cell_transpose.cell_to_soa(x.contiguous(), nt)

@@ -1,6 +1,7 @@
-"""Card-only tests of the PyTorch port: each CUDA kernel (K1-K4) against its
-plain PyTorch version on the card, the wrappers' input checks, and a short
-step of the cuda backend against the plain backend.
+"""Card-only tests of the PyTorch port: each CUDA kernel (K1-K7) against its
+plain PyTorch version on the card (K5/K6 bitwise), the wrappers' input
+checks, a short step of the cuda backend against the plain backend, and the
+step boundary with its dispatch counts.
 
 Run on a machine with a CUDA card (no JAX needed):
 
@@ -18,8 +19,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import quickstart  # noqa: E402
 from repro_torch.core import stepper  # noqa: E402
-from repro_torch.kernels import (column_solve, dispatch,  # noqa: E402
-                                 horizontal_flux, matrix_free, ops)
+from repro_torch.kernels import (cell_transpose, column_solve,  # noqa: E402
+                                 dispatch, horizontal_flux, matrix_free, ops,
+                                 tridiag)
+from repro_torch.obs import metrics  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -122,3 +125,92 @@ def test_step_cuda_matches_plain(cuda):
     for name in ("ux", "uy", "T", "S", "nu_t"):
         _close(getattr(a, name), getattr(b, name), torch.float64)
     assert float(a.ux.abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nt", [1, 127, 128, 129, 300, 1000])
+@pytest.mark.parametrize("nl", [1, 3, 16])
+def test_cell_transpose_kernels(cuda, dtype, nl, nt):
+    rng = np.random.default_rng(nl * 1000 + nt)
+    (x,) = _on(cuda, dtype, rng.normal(size=(nl, 6, nt)))
+    c = cell_transpose.soa_to_cell(x)
+    ref = cell_transpose.soa_to_cell_plain(x)
+    assert c.shape == ref.shape and torch.equal(c, ref)      # pad lanes zero
+    # K6 ignores whatever the pad lanes hold
+    c_dirty = c.clone()
+    c_dirty[-1, :, nt - (c.shape[0] - 1) * 128:] = float("nan")
+    back = cell_transpose.cell_to_soa(c_dirty, nt)
+    assert torch.equal(back, cell_transpose.cell_to_soa_plain(c, nt))
+    assert torch.equal(back, x)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nl,C", [(1, 1), (2, 130), (16, 300), (16, 1000)])
+def test_tridiag_kernel(cuda, dtype, nl, C):
+    rng = np.random.default_rng(nl * 7 + C)
+    lo, up = -5.0 * rng.random((nl, C)), -5.0 * rng.random((nl, C))
+    lo[0] = rng.normal(size=C)                       # ignored
+    up[-1] = rng.normal(size=C)                      # ignored
+    d = 1.0 - lo - up
+    d[0] = 1.0 - up[0] if nl > 1 else 1.0
+    d[-1] = 1.0 - lo[-1] if nl > 1 else 1.0
+    b = rng.normal(size=(nl, C))
+    args = _on(cuda, dtype, lo, d, up, b)
+    _close(tridiag.tridiag(*args), tridiag.tridiag_plain(*args), dtype)
+    torch.cuda.synchronize()
+
+
+def test_new_wrappers_reject_bad_inputs(cuda):
+    x = torch.zeros((2, 6, 130), device=cuda)
+    with pytest.raises(TypeError):                   # not float32 / float64
+        cell_transpose.soa_to_cell(x.half())
+    with pytest.raises(ValueError):                  # on the CPU
+        cell_transpose.soa_to_cell(x.cpu())
+    with pytest.raises(ValueError):                  # not (nl, 6, nt)
+        cell_transpose.soa_to_cell(torch.zeros((2, 5, 130), device=cuda))
+    with pytest.raises(ValueError):                  # not contiguous
+        cell_transpose.soa_to_cell(torch.zeros((2, 130, 6), device=cuda)
+                                   .transpose(1, 2))
+    c = torch.zeros((2, 12, 128), device=cuda)
+    with pytest.raises(ValueError):                  # nt does not fit 2 cells
+        cell_transpose.cell_to_soa(c, 300)
+    with pytest.raises(ValueError):
+        cell_transpose.cell_to_soa(torch.zeros((2, 12, 64), device=cuda), 100)
+    with pytest.raises(TypeError):
+        cell_transpose.cell_to_soa(c.to(torch.int32), 200)
+    a = torch.ones((4, 50), device=cuda)
+    with pytest.raises(TypeError):                   # mixed dtypes
+        tridiag.tridiag(a, a.double(), a, a)
+    with pytest.raises(ValueError):                  # mismatched shapes
+        tridiag.tridiag(a, a, a[:, :10], a)
+    with pytest.raises(ValueError):                  # nl < 1
+        z = torch.zeros((0, 50), device=cuda)
+        tridiag.tridiag(z, z, z, z)
+    with pytest.raises(ValueError):                  # one operand on the CPU
+        tridiag.tridiag(a, a, a, a.cpu())
+
+
+def test_step_boundary_and_dispatch_counts(cuda):
+    """state_to_cell -> state_from_cell through the kernels is bitwise, and
+    every cuda dispatch the registry counts launched one kernel."""
+    geom, vg, cfg, st = quickstart.setup(nx=12, nl=4, dtype=torch.float64,
+                                         device=cuda)
+    metrics.reset()
+    ops.reset_launches()
+    st = stepper.step(geom, vg, cfg, st)
+    cells = stepper.state_to_cell(st, backend="cuda")
+    back = stepper.state_from_cell(st, cells, geom.nt, backend="cuda")
+    for name in ("ux", "uy", "T", "S"):
+        assert torch.equal(getattr(back, name), getattr(st, name))
+    launches = dict(ops.LAUNCHES)
+    assert launches[("soa_to_cell", "cuda")] == 4
+    assert launches[("cell_to_soa", "cuda")] == 4
+    counted = {}
+    for op, kernel in ops.KERNEL.items():
+        n = metrics.default().counter("kernel_dispatch", op=op,
+                                      backend="cuda").value
+        if n:
+            counted[(kernel, "cuda")] = counted.get((kernel, "cuda"), 0) + n
+    assert counted == launches
+    metrics.reset()
