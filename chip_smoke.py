@@ -6,7 +6,9 @@
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
   1. device   — the card's name and power limit;
-  2. build    — compiles src/repro_torch/csrc/ocean_kernels.cu with nvcc and
+  2. build    — compiles every source under src/repro_torch/csrc/
+                (ocean_kernels.cu: K1-K7, model_kernels.cu: K8-K9) with one
+                nvcc each, all at once, links them into one library and
                 prints the registers / spills `-Xptxas -v` reports;
   3. kernels  — each CUDA kernel (K1 solve_r, K2 solve_w, K3 block_thomas,
                 K4 lateral_flux, K5 soa_to_cell, K6 cell_to_soa, K7 tridiag)
@@ -33,7 +35,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 into chiprun_out/, held by a halting MonitorPolicy (non-finite
                 values, volume and T/S mass drift); then
                 `python -m repro_torch.obs_smoke --device cuda`, which must
-                exit 0.
+                exit 0;
+  6. model kernels — ops.wkv6 (K8) and ops.attention (K9) through `auto`
+                on CUDA tensors at the full widths of the repo's LM configs
+                (rwkv6-3b, olmo-1b, gemma2-9b local layer, hubert-xlarge),
+                in float32 and bfloat16 from seeded numpy inputs: one
+                counted call each (its launch read just after), held
+                against the kernel's plain version on the card (bfloat16:
+                each output row within 2e-2 of its own largest value), then
+                timed against its bound (and, for olmo-1b and hubert-xlarge,
+                against scaled_dot_product_attention, a yardstick that the
+                port never calls).
 
 The line before the last is the card's `nvidia-smi` name and power limit;
 the line before that is the JSON kernel table; the last line is
@@ -54,8 +66,14 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {torch.float32: 67e12,  # H100 SXM vector peaks, no tensor cores
-              torch.float64: 34e12}  # (NVIDIA data sheet)
-TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+              torch.float64: 34e12,  # (NVIDIA data sheet); bf16: dense
+              torch.bfloat16: 989e12}  # tensor-core peak
+TOL = {torch.float32: 1e-5, torch.float64: 1e-12,
+       # model kernels against their plain versions, each output row (one
+       # query or token of one head) against its own largest |plain|: bf16
+       # rounds q * scale, p, k v^T, u k v^T and the output at other places
+       # than the plain version does (see model_held)
+       torch.bfloat16: 2e-2}
 # cuda vs plain backend after the main path's 3 steps; the two differ only
 # in summation order.  float64: every field within 1e-8 of its own maximum.
 # float32: the temperature and salinity within 1e-4 * max(|x|_inf, 1); the
@@ -68,7 +86,10 @@ TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 TOL_PATH = {torch.float32: 1e-4, torch.float64: 1e-8}
 HELD_F32 = ("T", "S")
 SOURCE = "src/repro_torch/csrc/ocean_kernels.cu"
+MODEL_SOURCE = "src/repro_torch/csrc/model_kernels.cu"
 REPLACES = {
+    "wkv6": "src/repro/kernels/wkv6.py:28",
+    "flash_attention": "src/repro/kernels/flash_attention.py:70",
     "solve_r": "src/repro/kernels/matrix_free.py:103",
     "solve_w": "src/repro/kernels/matrix_free.py:114",
     "block_thomas": "src/repro/kernels/column_solve.py:90",
@@ -85,6 +106,18 @@ BOUNDARY = {"soa_to_cell": 4, "cell_to_soa": 4, "tridiag": 2}
 TABLE_CASE = {"solve_r": "K=2", "solve_w": "K=1", "block_thomas": "k=2",
               "lateral_flux": "k=4", "soa_to_cell": "nt=160000",
               "cell_to_soa": "nt=160000", "tridiag": "nt=160000"}
+# phase 6: the model kernels at the widths of configs/archs.py (name: op,
+# batch, heads, sequence, head dim, options); BH = batch * heads
+MODEL_CASES = {
+    "rwkv6-3b": dict(op="wkv6", B=8, H=40, T=4096, d=64),          # RWKV6_3B
+    "olmo-1b": dict(op="attention", B=8, H=16, T=4096, d=128,       # OLMO_1B
+                    causal=True),
+    "gemma2-9b-local": dict(op="attention", B=1, H=16, T=8192,     # GEMMA2_9B
+                            d=256, causal=True, window=4096, softcap=50.0),
+    "hubert-xlarge": dict(op="attention", B=8, H=16, T=4096, d=80,  # HUBERT_XLARGE
+                          causal=False),
+}
+MODEL_TABLE_CASE = {"wkv6": "rwkv6-3b", "flash_attention": "olmo-1b"}
 RAGGED_NT = 159963    # a column count that is not a multiple of the cell
 OBS_DRIFT_MAX = 1e-10  # volume and T/S mass drift over the observed steps
 NX, NL = 400, 16      # rect_mesh(400, 200): 160,000 triangles x 16 layers
@@ -107,6 +140,27 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 # phase 2: build report
 # ---------------------------------------------------------------------------
+def kernel_variant(name: str):
+    """'solve_r_f32', 'block_thomas_f64_k2', 'flash_attention_bf16_d128'
+    from a mangled entry name, or None.  The kernel's identifier is found by
+    its length prefix, since the (anonymous) namespace's mangled name before
+    it may end in digits."""
+    k = re.search(r"_kernelI(f|d|13__nv_bfloat16)(?:Li(\d+)E)?", name)
+    if not k:
+        return None
+    head = name[:k.start() + len("_kernel")]
+    for n in range(len("_kernel") + 1, len(head)):
+        if head[-n].isalpha() and head[:-n].endswith(str(n)):
+            kernel = head[-n:-len("_kernel")]
+            break
+    else:
+        return None
+    var = f"{kernel}_{ {'f': 'f32', 'd': 'f64'}.get(k.group(1), 'bf16')}"
+    if k.group(2):
+        var += f"_{'d' if kernel == 'flash_attention' else 'k'}{k.group(2)}"
+    return var
+
+
 def ptxas_summary(report: str) -> dict:
     """{kernel variant: {registers, spill_stores, spill_loads}} from the
     `-Xptxas -v` report."""
@@ -115,12 +169,9 @@ def ptxas_summary(report: str) -> dict:
         m = re.search(r"(?:Compiling entry function|Function properties for) "
                       r"'?(\w+)'?", line)
         if m:
-            name = m.group(1)
-            k = re.search(r"\d+([a-z_]+?)_kernelI([fd])(?:Li(\d)E)?", name)
-            if k:
-                cur = f"{k.group(1)}_{'f32' if k.group(2) == 'f' else 'f64'}"
-                if k.group(3):
-                    cur += f"_k{k.group(3)}"
+            var = kernel_variant(m.group(1))
+            if var:
+                cur = var
                 out.setdefault(cur, {})
             continue
         if cur is None:
@@ -540,6 +591,188 @@ def phase_observed() -> dict:
     return dict(per_step=per_step)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the model kernels
+# ---------------------------------------------------------------------------
+def model_inputs(case: dict, seed: int) -> list:
+    """Seeded float32 numpy inputs with the JAX tests' recipes
+    (tests/test_kernels.py): wkv6 r, k, v, u ~ 0.5 N and the decay
+    w = exp(-exp(0.5 N - 1)); attention q, k, v ~ 0.3 N."""
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.standard_normal(s, dtype=np.float32)
+    BH, T, d = case["B"] * case["H"], case["T"], case["d"]
+    if case["op"] == "wkv6":
+        r, k, v = (0.5 * n(BH, T, d) for _ in range(3))
+        w = np.exp(-np.exp(0.5 * n(BH, T, d) - 1.0))
+        return [r, k, v, w, 0.5 * n(d)]
+    return [0.3 * n(BH, T, d) for _ in range(3)]
+
+
+def attention_pairs(T: int, causal: bool, window) -> int:
+    """Unmasked (q, k) pairs of one head: the keys each query row sees."""
+    qi = np.arange(T, dtype=np.int64)
+    hi = qi if causal else np.full(T, T - 1)
+    lo = np.maximum(qi - window + 1, 0) if window else np.zeros(T, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def model_flops(case: dict) -> int:
+    """7 K V flops per token and head (K8); 4 d per unmasked pair (K9)."""
+    BH, T, d = case["B"] * case["H"], case["T"], case["d"]
+    if case["op"] == "wkv6":
+        return 7 * d * d * T * BH
+    return 4 * d * BH * attention_pairs(T, case["causal"], case.get("window"))
+
+
+def model_held(out, ref, dtype) -> tuple:
+    """(max |out - ref|, the largest share of its limit an element uses; the
+    check passes at <= 1).  float32: TOL * max(|ref|, 1) for every element.
+    bfloat16: TOL * the largest |ref| of the element's row.  Attention rows
+    over thousands of keys are small (about 0.005 at hubert-xlarge), so one
+    limit for the whole output, floored at 1 or set by the causal mask's
+    short first rows, would let a kernel that drops a key tile pass."""
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.bfloat16:
+        lim = TOL[dtype] * ref.float().abs().amax(dim=-1, keepdim=True)
+    else:
+        lim = TOL[dtype] * max(float(ref.float().abs().max()), 1.0)
+    share = torch.where(diff == 0, 0.0, diff / lim)
+    return float(diff.max()), float(share.max())
+
+
+def phase_model(ptxas: dict) -> dict:
+    """Each case in float32 and bfloat16: one counted call through the ops
+    entry point on `auto`, held against the plain version, then timed."""
+    from repro_torch.kernels import dispatch, flash_attention, ops, wkv6
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain in full float32
+    results, path = {}, {}
+    for cname, case in MODEL_CASES.items():
+        arrs = model_inputs(case, SEED)
+        if case["op"] == "wkv6":
+            kname, kern, plain, library = ("wkv6", wkv6.wkv6, wkv6.wkv6_plain,
+                                           None)
+            entry = ops.wkv6
+            var = f"wkv6_{{}}_k{case['d']}"
+        else:
+            opts = dict(causal=case["causal"], window=case.get("window"),
+                        softcap=case.get("softcap"))
+            kname = "flash_attention"
+            kern = lambda q, k, v: flash_attention.flash_attention(q, k, v, **opts)
+            plain = lambda q, k, v: flash_attention.flash_attention_plain(
+                q, k, v, **opts)
+            entry = lambda q, k, v: ops.attention(q, k, v, **opts)
+            library = None
+            if case.get("window") is None and case.get("softcap") is None:
+                # (B, H, T, d) views: SDPA's fused kernels take 4-D inputs
+                # only; on (BH, T, d) it runs its unfused math path
+                heads = (case["B"], case["H"])
+                library = lambda q, k, v: (
+                    torch.nn.functional.scaled_dot_product_attention(
+                        q.unflatten(0, heads), k.unflatten(0, heads),
+                        v.unflatten(0, heads), is_causal=case["causal"])
+                    .flatten(0, 1))
+            var = f"flash_attention_{{}}_d{case['d']}"
+        flops = model_flops(case)
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = [torch.as_tensor(a).to(device="cuda", dtype=dtype)
+                   for a in arrs]
+            if dispatch.resolve_model(None, ins[0].device) is not dispatch.Backend.CUDA:
+                raise AssertionError("auto did not resolve to cuda")
+            ops.reset_launches()
+            out = entry(*ins)
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+            if launches != {(kname, "cuda"): 1}:
+                raise AssertionError(f"{cname} {dtype}: launches {launches} != "
+                                     f"one {kname} on cuda")
+            path[(kname, "cuda")] = path.get((kname, "cuda"), 0) + 1
+            ref = plain(*ins)
+            torch.cuda.synchronize()
+            if out.shape != ref.shape or out.dtype != ref.dtype:
+                raise AssertionError(f"{cname} {dtype}: kernel gives "
+                                     f"{out.dtype} {tuple(out.shape)}, plain "
+                                     f"{ref.dtype} {tuple(ref.shape)}")
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{cname} {dtype}: non-finite output")
+            err, share = model_held(out, ref, dtype)
+            ref_max = float(ref.float().abs().max())
+            if not share <= 1.0:
+                raise AssertionError(f"{cname} {dtype}: max_abs_err {err:.3e}, "
+                                     f"{share:.3f} of its limit (max|plain| "
+                                     f"{ref_max:.3e})")
+            del ref
+            ms = time_ms(lambda: kern(*ins), reps=20)
+            plain_ms = time_ms(lambda: plain(*ins), reps=3, warmup=1)
+            library_ms = lib_err = lib_share = None
+            if library is not None:
+                lib_out = library(*ins)
+                lib_err, lib_share = model_held(lib_out, out, dtype)
+                if not lib_share <= 1.0:
+                    raise AssertionError(f"{cname} {dtype}: the library call "
+                                         f"differs by {lib_err:.3e}, "
+                                         f"{lib_share:.3f} of the limit")
+                del lib_out
+                library_ms = time_ms(lambda: library(*ins), reps=20)
+            moved = nbytes(*ins, out)
+            # K8's state is float32 whatever the inputs' dtype
+            peak = PEAK_FLOPS[torch.float32 if kname == "wkv6" else dtype]
+            t_bytes = moved / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / peak * 1e3
+            bound = max(t_bytes, t_ops)
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            regs = ptxas.get(var.format(dt), {})
+            lib_txt = ("" if library_ms is None else
+                       f" library_ms={library_ms:.4f} (vs kernel {lib_err:.3e}, "
+                       f"{lib_share:.3f} of the limit)")
+            log(f"model {kname} {cname} {dt}: shape={tuple(ins[0].shape)} "
+                f"max_abs_err={err:.3e} (max|plain| {ref_max:.3e}; "
+                f"{share:.3f} of the limit, tol {TOL[dtype]:.0e} "
+                f"{'per row' if dtype == torch.bfloat16 else 'x max(|plain|, 1)'}) "
+                f"ms={ms:.4f} plain_ms={plain_ms:.3f}{lib_txt} bytes={moved} "
+                f"flops={flops} bound_ms={bound:.4f} "
+                f"({'bytes' if t_bytes >= t_ops else 'operations'}) "
+                f"share_of_bound={bound / ms:.4f} ptxas {var.format(dt)} {regs}")
+            results[(cname, dt)] = dict(
+                kernel=kname, max_abs_err=err, limit_share=share, ms=ms,
+                plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=moved, flops=flops, shape=list(ins[0].shape),
+                ptxas=regs)
+            del ins, out
+            torch.cuda.empty_cache()
+    log(f"model kernels: launches on the path {sorted(path.items())}")
+    return dict(results=results, launches=path)
+
+
+def model_rows(model: dict) -> list:
+    """The K8 and K9 rows of the kernel table: the float32 and bfloat16
+    numbers of MODEL_TABLE_CASE, with every case's numbers under `cases`."""
+    rows = []
+    for name, cname in MODEL_TABLE_CASE.items():
+        r32 = model["results"][(cname, "f32")]
+        r16 = model["results"][(cname, "bf16")]
+        cases = {c: {dt: {k: model["results"][(c, dt)][k] for k in
+                          ("ms", "bound_ms", "bound_by", "plain_ms",
+                           "library_ms", "max_abs_err", "limit_share",
+                           "shape")}
+                      for dt in ("f32", "bf16")}
+                 for c, case in MODEL_CASES.items()
+                 if (case["op"] == "wkv6") == (name == "wkv6")}
+        rows.append(dict(
+            name=name, route="cuda", source=MODEL_SOURCE,
+            replaces=REPLACES[name], launches=model["launches"][(name, "cuda")],
+            max_abs_err=r32["max_abs_err"], ms=r32["ms"],
+            plain_ms=r32["plain_ms"], bound_ms=r32["bound_ms"],
+            bound_by=r32["bound_by"], library_ms=r32["library_ms"],
+            dtype="float32", shape=r32["shape"], case=cname,
+            ms_bf16=r16["ms"], bound_ms_bf16=r16["bound_ms"],
+            plain_ms_bf16=r16["plain_ms"], library_ms_bf16=r16["library_ms"],
+            max_abs_err_bf16=r16["max_abs_err"], cases=cases))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -559,7 +792,8 @@ def main() -> int:
     cuda_lib.library()
     log(f"build: {so.name} in {time.perf_counter() - t0:.1f}s "
         f"({' '.join(cuda_lib.NVCC_FLAGS)})")
-    for variant, info in sorted(ptxas_summary(cuda_lib.ptxas_report()).items()):
+    ptxas = ptxas_summary(cuda_lib.ptxas_report())
+    for variant, info in sorted(ptxas.items()):
         log(f"ptxas {variant}: {info}")
 
     # 3. kernels at the main path's shapes
@@ -572,6 +806,9 @@ def main() -> int:
 
     # 5. the observed step, float64
     phase_observed()
+
+    # 6. the model kernels at the LM configs' widths
+    model = phase_model(ptxas)
 
     table = []
     for name, label in TABLE_CASE.items():
@@ -586,6 +823,7 @@ def main() -> int:
             ms_f64=r64["ms"], bound_ms_f64=r64["bound_ms"],
             plain_ms_f64=r64["plain_ms"], library_ms_f64=r64["library_ms"],
             max_abs_err_f64=r64["max_abs_err"]))
+    table += model_rows(model)
     print(json.dumps({"kernels": table}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

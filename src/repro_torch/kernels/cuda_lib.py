@@ -1,11 +1,17 @@
 """Build, load and call the hand-written CUDA kernels of `csrc/`.
 
-`csrc/ocean_kernels.cu` is compiled with `nvcc` into a shared library with a
-plain C interface and loaded with `ctypes`.  The build runs at first use
-into `build/kernels/` at the root of the checkout, keyed by a hash of the
-source and the flags, so a fresh checkout builds once and later processes
-reuse the library.  `nvcc -Xptxas -v` reports each kernel's registers and
-spills; the report is kept beside the library (`ptxas_report()`).
+Every source under `csrc/` (`ocean_kernels.cu`: K1-K7 of the ocean step,
+`model_kernels.cu`: K8 wkv6 and K9 flash attention) is compiled with `nvcc`,
+one process per source, all started together, and the objects are linked
+into one shared library with a plain C interface, loaded with `ctypes`.
+The build runs at first use into `build/kernels/` at the root of the
+checkout, keyed by a hash of every source and the flags, so a fresh
+checkout builds once and later processes reuse the library.
+`nvcc -Xptxas -v` reports each kernel's registers and spills; the report is
+kept beside the library (`ptxas_report()`).
+
+The ocean kernels come in float32 and float64, the model kernels in float32
+and bfloat16 (`DTYPES`).
 
 The kernels build only in a source checkout (or an editable install):
 `csrc/` is not installed as package data, and the build directory lies at
@@ -26,10 +32,10 @@ from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "ocean_kernels.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _ARGTYPES = {
@@ -40,8 +46,16 @@ _ARGTYPES = {
     "soa_to_cell": [_P, _P, _I, _I, _P],
     "cell_to_soa": [_P, _P, _I, _I, _P],
     "tridiag": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "wkv6": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int,
+                        _I, ctypes.c_double, ctypes.c_double, _P],
 }
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+OCEAN_DTYPES = (torch.float32, torch.float64)
+MODEL_DTYPES = (torch.float32, torch.bfloat16)
+# the dtypes each launcher is built for
+DTYPES = {name: MODEL_DTYPES if name in ("wkv6", "flash_attention")
+          else OCEAN_DTYPES for name in _ARGTYPES}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 
 _lib = None
 
@@ -58,32 +72,57 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _key() -> str:
-    if not SOURCE.is_file():
-        raise RuntimeError(f"kernel source {SOURCE} not found: the CUDA kernels "
+def sources() -> list:
+    """Every CUDA source under `csrc/`; raises outside a source checkout."""
+    found = sorted(CSRC.glob("*.cu"))
+    if not found:
+        raise RuntimeError(f"no kernel source under {CSRC}: the CUDA kernels "
                            "build only from a source checkout of the repository")
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    return found
+
+
+def _key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
 def library_path() -> Path:
-    return BUILD_DIR / f"ocean_kernels-{_key()}.so"
+    return BUILD_DIR / f"repro_torch_kernels-{_key()}.so"
+
+
+def _nvcc(*cmds) -> str:
+    """Run the nvcc commands all at once and wait for them; raise if any
+    failed, else return what they printed."""
+    procs = [subprocess.Popen([nvcc(), *cmd], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for cmd in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}"
+                               f"\n{out}\n{err}")
+    return "".join(out + err for out, err in outs)
 
 
 def build() -> Path:
-    """Compile the kernels unless this source was built already."""
+    """Compile the kernels unless these sources were built already: one
+    `nvcc -c` per source, all at once, then one link."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n"
-                           f"{res.stderr}")
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
+    tag = f"{so.stem}.{os.getpid()}"
+    srcs = sources()
+    objs = [str(BUILD_DIR / f"{tag}.{src.stem}.o") for src in srcs]
+    report = _nvcc(*([*NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                     for src, obj in zip(srcs, objs)))
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    _nvcc(["-shared", "-o", str(tmp), *objs])
+    for obj in objs:
+        os.unlink(obj)
+    so.with_suffix(".log").write_text(report)
     os.replace(tmp, so)
     return so
 
@@ -100,8 +139,8 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in _ARGTYPES.items():
-            for suffix in _SUFFIX.values():
-                fn = getattr(lib, f"{name}_{suffix}")
+            for dtype in DTYPES[name]:
+                fn = getattr(lib, f"{name}_{_SUFFIX[dtype]}")
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
         lib.ocean_error_string.argtypes = [ctypes.c_int]
@@ -110,16 +149,18 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def check(name: str, t: torch.Tensor, shape, like: torch.Tensor) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``like``'s dtype and
-    device with the given shape."""
+def check(name: str, t: torch.Tensor, shape, like: torch.Tensor,
+          dtypes=OCEAN_DTYPES) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``like``'s dtype
+    (one of ``dtypes``) and device with the given shape."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device.type != "cuda" or t.device != like.device:
         raise ValueError(f"{name}: expected a tensor on {like.device}, "
                          f"got {t.device}")
-    if t.dtype not in _SUFFIX or t.dtype != like.dtype:
-        raise TypeError(f"{name}: expected {like.dtype} (float32 or float64), "
+    if t.dtype not in dtypes or t.dtype != like.dtype:
+        allowed = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{name}: expected {like.dtype} ({allowed}), "
                         f"got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "

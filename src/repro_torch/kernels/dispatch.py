@@ -14,6 +14,9 @@ the tensors:
 ``auto`` (or None) resolves to CUDA on a CUDA tensor and to PLAIN on a CPU
 tensor.  CUDA on a CPU tensor raises: no request for the card ever runs on
 the CPU, and a CUDA tensor never reaches a plain version through ``auto``.
+The model kernels (`ops.wkv6`, `ops.attention`) resolve through
+`resolve_model`, whose ``auto`` is REF on a CPU tensor, as the JAX
+package's model ops default to their jnp forms off the TPU.
 
 ``LAUNCHES`` counts calls per (op, backend).  The CUDA wrappers add one
 where they launch their kernel; `ops.py` adds one for each plain and ref
@@ -52,6 +55,14 @@ def resolve(backend: BackendLike, device: torch.device) -> Backend:
     if bk is Backend.CUDA and device.type != "cuda":
         raise ValueError(f"backend 'cuda' needs CUDA tensors, got {device}")
     return bk
+
+
+def resolve_model(backend: BackendLike, device: torch.device) -> Backend:
+    """`resolve` for the model kernels: ``auto`` (or None) is CUDA on a CUDA
+    tensor and REF on a CPU tensor."""
+    if (backend is None or backend == "auto") and torch.device(device).type != "cuda":
+        return Backend.REF
+    return resolve(backend, device)
 
 
 def default_device(device=None) -> torch.device:

@@ -1,0 +1,112 @@
+"""Forward flash attention with optional causal mask, sliding window and
+tanh logit soft-cap: CUDA kernel K9.
+
+q (BH, Tq, d), k and v (BH, Tk, d) -> (BH, Tq, d) in q's dtype.  Scores are
+float32: s = (q * d^-1/2) k^T, soft-capped as softcap * tanh(s / softcap),
+then masked to -1e30 where a key is above the diagonal (causal: k <= q,
+top-left aligned) or outside the window (k > q - window).  The softmax runs
+online over key blocks, with the running max m, the normaliser l (floored
+at 1e-30 at the end) and the output accumulator in float32.
+
+The kernel (`csrc/model_kernels.cu`: flash_attention_kernel) runs one block
+per (bh, 64-query tile) over 64-key tiles in shared memory, and skips the
+key tiles that lie wholly above the causal diagonal or below the window.
+It takes any Tq and Tk (the TPU version needs multiples of 128), head dims
+in `HEAD_DIMS`, float32 and bfloat16.
+
+A query row with no valid key at all (with a window, the rows q >= Tk +
+window - 1, causal or not) keeps m at the sentinel, so every key gets p = 1
+and the row is the mean of v over all Tk keys: in the Pallas kernel, the
+plain version, `ref` and the CUDA kernel alike.
+
+`flash_attention` launches the kernel and takes only CUDA tensors;
+`flash_attention_plain` is the plain PyTorch version, the Pallas kernel's
+body over 128-key blocks, used on CPU tensors and to check the kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import cuda_lib
+from .dispatch import LAUNCHES
+
+NEG_INF = -1e30
+BLOCK_K = 128                            # the Pallas kernel's key block
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # the d the kernel is built for
+MAX_BH = 65535                           # the launch grid's y extent
+
+
+def _check_options(window, softcap) -> None:
+    if window is not None and window < 1:
+        raise ValueError(f"attention: window={window} masks every key (>= 1)")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"attention: softcap={softcap} must be > 0")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, window: Optional[int] = None,
+                          softcap: Optional[float] = None) -> torch.Tensor:
+    """The Pallas kernel's body (`repro/kernels/flash_attention.py:24-65`)
+    over key blocks of 128, all query rows at once: q is scaled in its own
+    dtype, p is cast to v's dtype before the PV product, both products sum
+    in float32.  A ragged last key block is cut short, which for every row
+    with a valid key gives what masked padding would."""
+    _check_options(window, softcap)
+    BH, Tq, d = q.shape
+    Tk = k.shape[1]
+    dev = q.device
+    qf = (q * (1.0 / (d ** 0.5))).float()
+    q_ids = torch.arange(Tq, device=dev)[:, None]
+    m = torch.full((BH, Tq, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((BH, Tq, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((BH, Tq, d), dtype=torch.float32, device=dev)
+    for k0 in range(0, Tk, BLOCK_K):
+        kb, vb = k[:, k0:k0 + BLOCK_K], v[:, k0:k0 + BLOCK_K]
+        s = torch.matmul(qf, kb.float().transpose(1, 2))
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        k_ids = k0 + torch.arange(kb.shape[1], device=dev)[None, :]
+        mask = torch.ones(s.shape[1:], dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (k_ids <= q_ids)
+        if window is not None:
+            mask = mask & (k_ids > q_ids - window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + torch.matmul(p.to(v.dtype).float(), vb.float())
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """K9 on the card: q (BH, Tq, d), k/v (BH, Tk, d) -> (BH, Tq, d)."""
+    if q.dim() != 3 or k.dim() != 3:
+        raise ValueError(f"flash_attention: expected q (BH, Tq, d) and k/v "
+                         f"(BH, Tk, d), got {tuple(q.shape)}, {tuple(k.shape)}")
+    BH, Tq, d = q.shape
+    Tk = k.shape[1]
+    dtypes = cuda_lib.MODEL_DTYPES
+    cuda_lib.check("q", q, (BH, Tq, d), q, dtypes)
+    cuda_lib.check("k", k, (BH, Tk, d), q, dtypes)
+    cuda_lib.check("v", v, (BH, Tk, d), q, dtypes)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} is not built "
+                         f"(d in {HEAD_DIMS})")
+    if not (1 <= BH <= MAX_BH and Tq >= 1 and Tk >= 1):
+        raise ValueError(f"flash_attention: unsupported shape (BH={BH}, "
+                         f"Tq={Tq}, Tk={Tk}; 1 <= BH <= {MAX_BH})")
+    _check_options(window, softcap)
+    out = torch.empty_like(q)
+    cuda_lib.launch("flash_attention", q.dtype, q.device, q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Tq, Tk, d,
+                    int(bool(causal)), 0 if window is None else int(window),
+                    1.0 / (d ** 0.5), 0.0 if softcap is None else float(softcap))
+    LAUNCHES[("flash_attention", "cuda")] += 1
+    return out

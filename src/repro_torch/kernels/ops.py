@@ -1,13 +1,13 @@
-"""Ocean-path entry points of the kernels, with backend dispatch.
+"""Entry points of the kernels, with backend dispatch.
 
 Each op routes by `dispatch.Backend`:
 
   * ref   — the plain column solvers of `core/` (`kernels/ref.py` for the
-            cell-layout ops),
+            cell-layout ops and the model ops),
   * plain — the kernel's plain PyTorch version (same shapes as the kernel),
   * cuda  — the hand-written CUDA kernel.
 
-Two families of signatures, as in the JAX package:
+Three families of signatures, as in the JAX package:
 
   * SoA (the stepper's hot path): `solve_r`, `solve_w`, `block_thomas`,
     `lateral_flux_term` take the stepper's (..., nl, 6, nt) tensors; a
@@ -17,6 +17,9 @@ Two families of signatures, as in the JAX package:
     `block_thomas_cell` take (rows, C) column operands, and `soa_to_cell` /
     `cell_to_soa` convert a field between the layouts.  (nl*6, C) row-major
     is (nl, 6, C), so the matrix-free kernels take it as a view.
+  * model ops: `wkv6` and `attention` (the JAX package's `ops.py:219-240`),
+    whose `auto` is `cuda` on a CUDA tensor and `ref` on a CPU tensor
+    (`dispatch.resolve_model`).
 
 Every call goes through `_dispatch(op, backend)`, which adds one to the
 default metrics registry's ``kernel_dispatch{op=..., backend=...}`` counter
@@ -33,10 +36,11 @@ import math
 
 import torch
 
-from . import cell_transpose, column_solve, dispatch, horizontal_flux
-from . import matrix_free
+from . import cell_transpose, column_solve, dispatch, flash_attention
+from . import horizontal_flux, matrix_free
 from . import ref as _ref
 from . import tridiag as _tridiag
+from . import wkv6 as _wkv6
 from .dispatch import LAUNCHES, Backend, reset_launches  # noqa: F401
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
@@ -48,6 +52,7 @@ KERNEL = {
     "block_thomas": "block_thomas", "block_thomas_cell": "block_thomas",
     "lateral_flux": "lateral_flux", "tridiag": "tridiag",
     "soa_to_cell": "soa_to_cell", "cell_to_soa": "cell_to_soa",
+    "wkv6": "wkv6", "attention": "flash_attention",
 }
 
 
@@ -218,3 +223,33 @@ def cell_to_soa(x, nt, backend: dispatch.BackendLike = None):
         if bk is Backend.PLAIN:
             return cell_transpose.cell_to_soa_plain(x, nt)
         return cell_transpose.cell_to_soa(x.contiguous(), nt)
+
+
+# ---------------------------------------------------------------------------
+# model kernels (the JAX package's `ops.py:219-240`)
+# ---------------------------------------------------------------------------
+def wkv6(r, k, v, w, u, backend: dispatch.BackendLike = None):
+    """RWKV6 recurrence: r, k, w (BH, T, K); v (BH, T, V); u (K,)."""
+    bk = dispatch.resolve_model(backend, r.device)
+    with _dispatch("wkv6", bk):
+        if bk is Backend.REF:
+            return _ref.wkv6(r, k, v, w, u)
+        if bk is Backend.PLAIN:
+            return _wkv6.wkv6_plain(r, k, v, w, u)
+        return _wkv6.wkv6(*(t.contiguous() for t in (r, k, v, w, u)))
+
+
+def attention(q, k, v, causal=True, window=None, softcap=None,
+              backend: dispatch.BackendLike = None):
+    """Forward attention: q (BH, Tq, d), k/v (BH, Tk, d)."""
+    bk = dispatch.resolve_model(backend, q.device)
+    with _dispatch("attention", bk):
+        if bk is Backend.REF:
+            return _ref.chunked_attention(q, k, v, causal=causal,
+                                          window=window, softcap=softcap)
+        if bk is Backend.PLAIN:
+            return flash_attention.flash_attention_plain(
+                q, k, v, causal=causal, window=window, softcap=softcap)
+        return flash_attention.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            window=window, softcap=softcap)

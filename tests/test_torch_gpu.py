@@ -1,7 +1,7 @@
-"""Card-only tests of the PyTorch port: each CUDA kernel (K1-K7) against its
-plain PyTorch version on the card (K5/K6 bitwise), the wrappers' input
-checks, a short step of the cuda backend against the plain backend, and the
-step boundary with its dispatch counts.
+"""Card-only tests of the PyTorch port: each CUDA kernel (K1-K9) against its
+plain PyTorch version on the card (K5/K6 bitwise; K8/K9 in float32 and
+bfloat16), the wrappers' input checks, a short step of the cuda backend
+against the plain backend, and the step boundary with its dispatch counts.
 
 Run on a machine with a CUDA card (no JAX needed):
 
@@ -20,8 +20,8 @@ torch = pytest.importorskip("torch")
 from repro_torch import quickstart  # noqa: E402
 from repro_torch.core import stepper  # noqa: E402
 from repro_torch.kernels import (cell_transpose, column_solve,  # noqa: E402
-                                 dispatch, horizontal_flux, matrix_free, ops,
-                                 tridiag)
+                                 dispatch, flash_attention, horizontal_flux,
+                                 matrix_free, ops, tridiag, wkv6)
 from repro_torch.obs import metrics  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -214,3 +214,93 @@ def test_step_boundary_and_dispatch_counts(cuda):
             counted[(kernel, "cuda")] = counted.get((kernel, "cuda"), 0) + n
     assert counted == launches
     metrics.reset()
+
+
+# --- model kernels: K8 wkv6, K9 flash attention -------------------------------
+# float32: 1e-5 of max(|plain|, 1), the same sums in another order; bfloat16:
+# 2e-2 of the largest |plain| of each output row (one query or token of one
+# head), since bf16 rounds q * scale, p, k v^T, u k v^T and the output at
+# other places, and attention rows over many keys are small
+MODEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _model_close(out, ref, dtype):
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    if dtype == torch.bfloat16:
+        limit = MODEL_TOL[dtype] * ref.abs().amax(dim=-1, keepdim=True)
+    else:
+        limit = MODEL_TOL[dtype] * max(float(ref.abs().max()), 1.0)
+    assert bool((err <= limit).all()), (float(err.max()),
+                                        float((err - limit).max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,t,kd,vd", [(1, 128, 16, 16), (3, 200, 32, 48),
+                                        (2, 256, 64, 64), (2, 77, 64, 130)])
+def test_wkv6_kernel(cuda, dtype, bh, t, kd, vd):
+    rng = np.random.default_rng(bh * t + kd + vd)
+    n = lambda *s: 0.5 * rng.normal(size=s)
+    w = np.exp(-np.exp(rng.normal(size=(bh, t, kd)) * 0.5 - 1.0))
+    args = _on(cuda, dtype, n(bh, t, kd), n(bh, t, kd), n(bh, t, vd), w, n(kd))
+    ops.reset_launches()
+    out = ops.wkv6(*args)
+    assert dict(ops.LAUNCHES) == {("wkv6", "cuda"): 1}
+    _model_close(out, wkv6.wkv6_plain(*args), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", flash_attention.HEAD_DIMS)
+def test_flash_attention_kernel(cuda, dtype, d):
+    torch.backends.cuda.matmul.allow_tf32 = False    # plain in full float32
+    rng = np.random.default_rng(d)
+    for causal, window, softcap, tq, tk in [
+            (True, None, None, 200, 200), (False, None, None, 128, 512),
+            (True, 64, 30.0, 300, 300), (False, 100, 50.0, 70, 333),
+            # rows q >= tk + window - 1 have no valid key: the mean of v,
+            # in query tiles with and without rows that have one
+            (False, 64, None, 300, 100), (True, 32, None, 256, 96)]:
+        q, k, v = _on(cuda, dtype, *(0.5 * rng.normal(size=(2, t, d))
+                                     for t in (tq, tk, tk)))
+        opts = dict(causal=causal, window=window, softcap=softcap)
+        ops.reset_launches()
+        out = ops.attention(q, k, v, **opts)
+        assert dict(ops.LAUNCHES) == {("flash_attention", "cuda"): 1}
+        _model_close(out, flash_attention.flash_attention_plain(q, k, v, **opts),
+                     dtype)
+    torch.cuda.synchronize()
+
+
+def test_model_wrappers_reject_bad_inputs(cuda):
+    r = torch.zeros((2, 64, 16), device=cuda)
+    u = torch.zeros(16, device=cuda)
+    with pytest.raises(TypeError):                   # float64 is not built
+        wkv6.wkv6(r.double(), r.double(), r.double(), r.double(), u.double())
+    with pytest.raises(TypeError):                   # mixed dtypes
+        wkv6.wkv6(r, r, r.bfloat16(), r, u)
+    r24 = torch.zeros((2, 64, 24), device=cuda)
+    with pytest.raises(ValueError):                  # K = 24 is not built
+        wkv6.wkv6(r24, r24, r24, r24, torch.zeros(24, device=cuda))
+    with pytest.raises(ValueError):                  # not contiguous
+        rt = torch.zeros((2, 16, 64), device=cuda).transpose(1, 2)
+        wkv6.wkv6(rt, r, r, r, u)
+    with pytest.raises(ValueError):                  # u is (K,)
+        wkv6.wkv6(r, r, r, r, u[:8])
+    q = torch.zeros((2, 128, 64), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q.double(), q.double(), q.double())
+    for d in (96, 512):                              # not built / above 256
+        qd = torch.zeros((2, 128, d), device=cuda)
+        with pytest.raises(ValueError):
+            flash_attention.flash_attention(qd, qd, qd)
+    with pytest.raises(ValueError):                  # not contiguous
+        qt = torch.zeros((2, 64, 128), device=cuda).transpose(1, 2)
+        flash_attention.flash_attention(qt, q, q)
+    with pytest.raises(ValueError):                  # k and v differ in length
+        flash_attention.flash_attention(q, q, q[:, :64].contiguous())
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, q, q, window=0)
+    with pytest.raises(ValueError):                  # cuda on CPU tensors
+        ops.attention(q.cpu(), q.cpu(), q.cpu(), backend="cuda")

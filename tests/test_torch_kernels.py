@@ -222,6 +222,6 @@ def test_backend_resolution_on_cpu(geoms):
 
 def test_build_needs_the_source(monkeypatch, tmp_path):
     from repro_torch.kernels import cuda_lib
-    monkeypatch.setattr(cuda_lib, "SOURCE", tmp_path / "missing.cu")
+    monkeypatch.setattr(cuda_lib, "CSRC", tmp_path)     # holds no .cu file
     with pytest.raises(RuntimeError, match="source checkout"):
         cuda_lib.build()
