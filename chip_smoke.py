@@ -7,9 +7,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 
   1. device   — the card's name and power limit;
   2. build    — compiles every source under src/repro_torch/csrc/
-                (ocean_kernels.cu: K1-K7, model_kernels.cu: K8-K9) with one
-                nvcc each, all at once, links them into one library and
-                prints the registers / spills `-Xptxas -v` reports;
+                (ocean_kernels.cu: K1-K7, model_kernels.cu: K8,
+                flash_attention.cu: K9) with one nvcc each, all at once,
+                links them into one library and prints the registers /
+                spills `-Xptxas -v` reports; then counts, in each K9
+                variant's SASS (`cuobjdump -sass`), the wgmma (HGMMA), TMA
+                load (UTMALDG), cp.async (LDGSTS) and FFMA instructions, and
+                fails unless every bf16 variant has HGMMA and UTMALDG and
+                every float32 one LDGSTS;
   3. kernels  — each CUDA kernel (K1 solve_r, K2 solve_w, K3 block_thomas,
                 K4 lateral_flux, K5 soa_to_cell, K6 cell_to_soa, K7 tridiag)
                 against its plain PyTorch version at the main path's shapes,
@@ -45,7 +50,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 each output row within 2e-2 of its own largest value), then
                 timed against its bound (and, for olmo-1b and hubert-xlarge,
                 against scaled_dot_product_attention, a yardstick that the
-                port never calls).
+                port never calls); K9's lines add the SFU's exp floor (one
+                exp per unmasked pair) and its time before the redesign
+                for the tensor cores.
 
 The line before the last is the card's `nvidia-smi` name and power limit;
 the line before that is the JSON kernel table; the last line is
@@ -86,7 +93,8 @@ TOL = {torch.float32: 1e-5, torch.float64: 1e-12,
 TOL_PATH = {torch.float32: 1e-4, torch.float64: 1e-8}
 HELD_F32 = ("T", "S")
 SOURCE = "src/repro_torch/csrc/ocean_kernels.cu"
-MODEL_SOURCE = "src/repro_torch/csrc/model_kernels.cu"
+MODEL_SOURCE = {"wkv6": "src/repro_torch/csrc/model_kernels.cu",
+                "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
 REPLACES = {
     "wkv6": "src/repro/kernels/wkv6.py:28",
     "flash_attention": "src/repro/kernels/flash_attention.py:70",
@@ -118,6 +126,14 @@ MODEL_CASES = {
                           causal=False),
 }
 MODEL_TABLE_CASE = {"wkv6": "rwkv6-3b", "flash_attention": "olmo-1b"}
+# K9's times before its redesign for the tensor cores (the FP32-pipe kernel,
+# NVIDIA H100 80GB HBM3 at 700 W, PERF.md's K9 rows), printed beside this run's
+K9_BEFORE_MS = {("olmo-1b", "f32"): 22.5265, ("olmo-1b", "bf16"): 22.3221,
+                ("gemma2-9b-local", "f32"): 20.4772,
+                ("gemma2-9b-local", "bf16"): 20.3391,
+                ("hubert-xlarge", "f32"): 31.2539,
+                ("hubert-xlarge", "bf16"): 31.4286}
+SFU_EX2_PER_CLOCK = 16 * 132   # MUFU.EX2 results per clock: 16 per SM, 132 SMs
 RAGGED_NT = 159963    # a column count that is not a multiple of the cell
 OBS_DRIFT_MAX = 1e-10  # volume and T/S mass drift over the observed steps
 NX, NL = 400, 16      # rect_mesh(400, 200): 160,000 triangles x 16 layers
@@ -131,6 +147,14 @@ def log(*a):
     print(*a, flush=True)
 
 
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock as nvidia-smi reports it."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -142,9 +166,13 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 def kernel_variant(name: str):
     """'solve_r_f32', 'block_thomas_f64_k2', 'flash_attention_bf16_d128'
-    from a mangled entry name, or None.  The kernel's identifier is found by
+    from a mangled entry name, or None (K9's kernels are flash_bf16_kernel<D>
+    and flash_f32_kernel<D>).  The kernel's identifier is found by
     its length prefix, since the (anonymous) namespace's mangled name before
     it may end in digits."""
+    fa = re.search(r"flash_(bf16|f32)_kernelILi(\d+)E", name)
+    if fa:
+        return f"flash_attention_{fa.group(1)}_d{fa.group(2)}"
     k = re.search(r"_kernelI(f|d|13__nv_bfloat16)(?:Li(\d+)E)?", name)
     if not k:
         return None
@@ -157,7 +185,7 @@ def kernel_variant(name: str):
         return None
     var = f"{kernel}_{ {'f': 'f32', 'd': 'f64'}.get(k.group(1), 'bf16')}"
     if k.group(2):
-        var += f"_{'d' if kernel == 'flash_attention' else 'k'}{k.group(2)}"
+        var += f"_k{k.group(2)}"
     return var
 
 
@@ -184,6 +212,63 @@ def ptxas_summary(report: str) -> dict:
         if m:
             out[cur]["registers"] = int(m.group(1))
     return out
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "FFMA")
+
+
+def disassembler() -> str:
+    """Path of a `cuobjdump` that can read the library: the toolkit's, else
+    the copy Triton ships."""
+    from repro_torch.kernels import cuda_lib
+    cands = [Path(cuda_lib.nvcc()).parent / "cuobjdump"]
+    try:
+        import triton
+        cands.append(Path(triton.__file__).parent / "backends" / "nvidia"
+                     / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    for c in cands:
+        if c.exists():
+            return str(c)
+    raise RuntimeError(f"no cuobjdump found (looked at {[str(c) for c in cands]})")
+
+
+def sass_counts(so: Path) -> tuple:
+    """({K9 variant: {op: count}} for the ops of SASS_OPS, the tool used),
+    from `cuobjdump -sass` of the built library."""
+    tool = disassembler()
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            var = kernel_variant(m.group(1))
+            cur = var if var and var.startswith("flash_attention") else None
+            if cur:
+                out[cur] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        if cur:
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+            if m and m.group(1) in out[cur]:
+                out[cur][m.group(1)] += 1
+    return out, tool
+
+
+def check_sass(counts: dict) -> None:
+    """Every bf16 K9 variant issues wgmma (HGMMA) and TMA loads (UTMALDG);
+    every float32 one cp.async (LDGSTS)."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    for d in HEAD_DIMS:
+        bf, f32 = (counts.get(f"flash_attention_{dt}_d{d}", {})
+                   for dt in ("bf16", "f32"))
+        if not bf.get("HGMMA") or not bf.get("UTMALDG"):
+            raise AssertionError(f"flash_attention_bf16_d{d}: no HGMMA or "
+                                 f"UTMALDG in its SASS ({bf})")
+        if not f32.get("LDGSTS"):
+            raise AssertionError(f"flash_attention_f32_d{d}: no LDGSTS in "
+                                 f"its SASS ({f32})")
 
 
 # ---------------------------------------------------------------------------
@@ -647,6 +732,7 @@ def phase_model(ptxas: dict) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain in full float32
     results, path = {}, {}
+    clock = sm_clock_mhz()
     for cname, case in MODEL_CASES.items():
         arrs = model_inputs(case, SEED)
         if case["op"] == "wkv6":
@@ -725,6 +811,15 @@ def phase_model(ptxas: dict) -> dict:
             lib_txt = ("" if library_ms is None else
                        f" library_ms={library_ms:.4f} (vs kernel {lib_err:.3e}, "
                        f"{lib_share:.3f} of the limit)")
+            sfu_ms = None
+            if kname == "flash_attention":
+                # one exp per unmasked pair on the SFU at the max SM clock
+                sfu_ms = (flops / (4 * case["d"])
+                          / (SFU_EX2_PER_CLOCK * clock * 1e6) * 1e3)
+                before = K9_BEFORE_MS[(cname, dt)]
+                lib_txt += (f" sfu_exp_floor_ms={sfu_ms:.4f} (at {clock:.0f} MHz)"
+                            f" before_ms={before:.4f} (FP32-pipe kernel; "
+                            f"{before / ms:.2f}x)")
             log(f"model {kname} {cname} {dt}: shape={tuple(ins[0].shape)} "
                 f"max_abs_err={err:.3e} (max|plain| {ref_max:.3e}; "
                 f"{share:.3f} of the limit, tol {TOL[dtype]:.0e} "
@@ -736,7 +831,7 @@ def phase_model(ptxas: dict) -> dict:
             results[(cname, dt)] = dict(
                 kernel=kname, max_abs_err=err, limit_share=share, ms=ms,
                 plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound,
+                library_ms=library_ms, bound_ms=bound, sfu_floor_ms=sfu_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=moved, flops=flops, shape=list(ins[0].shape),
                 ptxas=regs)
@@ -761,7 +856,7 @@ def model_rows(model: dict) -> list:
                  for c, case in MODEL_CASES.items()
                  if (case["op"] == "wkv6") == (name == "wkv6")}
         rows.append(dict(
-            name=name, route="cuda", source=MODEL_SOURCE,
+            name=name, route="cuda", source=MODEL_SOURCE[name],
             replaces=REPLACES[name], launches=model["launches"][(name, "cuda")],
             max_abs_err=r32["max_abs_err"], ms=r32["ms"],
             plain_ms=r32["plain_ms"], bound_ms=r32["bound_ms"],
@@ -792,9 +887,17 @@ def main() -> int:
     cuda_lib.library()
     log(f"build: {so.name} in {time.perf_counter() - t0:.1f}s "
         f"({' '.join(cuda_lib.NVCC_FLAGS)})")
-    ptxas = ptxas_summary(cuda_lib.ptxas_report())
+    report = cuda_lib.ptxas_report()
+    ptxas = ptxas_summary(report)
     for variant, info in sorted(ptxas.items()):
         log(f"ptxas {variant}: {info}")
+    for line in sorted({ln.strip() for ln in report.splitlines()
+                        if "wgmma" in ln.lower() or "setmaxnreg" in ln}):
+        log(f"ptxas note: {line}")
+    sass, tool = sass_counts(so)
+    for variant, counts in sorted(sass.items()):
+        log(f"sass {variant} ({tool}): {counts}")
+    check_sass(sass)
 
     # 3. kernels at the main path's shapes
     kres = phase_kernels(2 * NX * (NX // 2), NL, SEED)
@@ -823,7 +926,10 @@ def main() -> int:
             ms_f64=r64["ms"], bound_ms_f64=r64["bound_ms"],
             plain_ms_f64=r64["plain_ms"], library_ms_f64=r64["library_ms"],
             max_abs_err_f64=r64["max_abs_err"]))
-    table += model_rows(model)
+    for row in model_rows(model):
+        if row["name"] == "flash_attention":
+            row["sass"] = sass
+        table.append(row)
     print(json.dumps({"kernels": table}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

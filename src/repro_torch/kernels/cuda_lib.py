@@ -1,12 +1,14 @@
 """Build, load and call the hand-written CUDA kernels of `csrc/`.
 
 Every source under `csrc/` (`ocean_kernels.cu`: K1-K7 of the ocean step,
-`model_kernels.cu`: K8 wkv6 and K9 flash attention) is compiled with `nvcc`,
+`model_kernels.cu`: K8 wkv6, `flash_attention.cu`: K9, with the `wgmma`
+instructions of `wgmma.cuh`) is compiled with `nvcc`,
 one process per source, all started together, and the objects are linked
 into one shared library with a plain C interface, loaded with `ctypes`.
 The build runs at first use into `build/kernels/` at the root of the
 checkout, keyed by a hash of every source and the flags, so a fresh
-checkout builds once and later processes reuse the library.
+checkout builds once and later processes reuse the library (the headers
+`csrc/*.cuh` are part of the key).
 `nvcc -Xptxas -v` reports each kernel's registers and spills; the report is
 kept beside the library (`ptxas_report()`).
 
@@ -47,8 +49,12 @@ _ARGTYPES = {
     "cell_to_soa": [_P, _P, _I, _I, _P],
     "tridiag": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "wkv6": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # ..., then the launch plan: block_q, block_k, chunk, stages, threads,
+    # shared-memory bytes, the grid's query tiles
+    # (kernels/flash_attention.py: launch_plan, grid)
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int,
-                        _I, ctypes.c_double, ctypes.c_double, _P],
+                        _I, ctypes.c_double, ctypes.c_double,
+                        _I, _I, _I, _I, _I, _I, _I, _P],
 }
 OCEAN_DTYPES = (torch.float32, torch.float64)
 MODEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -83,7 +89,7 @@ def sources() -> list:
 
 def _key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -273,6 +273,33 @@ def test_flash_attention_kernel(cuda, dtype, d):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", flash_attention.HEAD_DIMS)
+def test_flash_attention_tile_edges(cuda, dtype, d):
+    """Tq and Tk one below, at and one above the query and key tile edges of
+    the launch plan, with BH = 3 (a tensor map that read past a head's last
+    row would mix heads); a causal diagonal inside a key tile (Tq != Tk);
+    a window edge inside a key tile."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plan = flash_attention.launch_plan(d, dtype)
+    bq, bk = plan["block_q"], plan["block_k"]
+    rng = np.random.default_rng(100 + d)
+    cases = [(causal, None, tq, tk) for causal in (False, True)
+             for tq, tk in [(bq - 1, bk - 1), (bq, bk), (bq + 1, bk + 1),
+                            (bq + 1, 2 * bk - 1), (2 * bq - 1, 2 * bk + 1)]]
+    cases += [(True, None, bq + bq // 2, 2 * bk + bk // 2),
+              (True, bk // 2 + 3, 2 * bq + 5, 2 * bq + 5),
+              (False, bk + 7, bq + 9, 3 * bk - 2)]
+    for causal, window, tq, tk in cases:
+        q, k, v = _on(cuda, dtype, *(0.5 * rng.normal(size=(3, t, d))
+                                     for t in (tq, tk, tk)))
+        opts = dict(causal=causal, window=window)
+        out = flash_attention.flash_attention(q, k, v, **opts)
+        _model_close(out, flash_attention.flash_attention_plain(q, k, v, **opts),
+                     dtype)
+    torch.cuda.synchronize()
+
+
 def test_model_wrappers_reject_bad_inputs(cuda):
     r = torch.zeros((2, 64, 16), device=cuda)
     u = torch.zeros(16, device=cuda)
@@ -302,5 +329,11 @@ def test_model_wrappers_reject_bad_inputs(cuda):
         flash_attention.flash_attention(q, q, q[:, :64].contiguous())
     with pytest.raises(ValueError):
         flash_attention.flash_attention(q, q, q, window=0)
+    for dtype in (torch.float32, torch.bfloat16):    # 16-byte aligned data only
+        flat = torch.zeros(2 * 128 * 64 + 1, device=cuda, dtype=dtype)
+        odd = flat[1:].view(2, 128, 64)
+        assert odd.is_contiguous() and odd.data_ptr() % 16
+        with pytest.raises(ValueError):
+            flash_attention.flash_attention(odd, q.to(dtype), q.to(dtype))
     with pytest.raises(ValueError):                  # cuda on CPU tensors
         ops.attention(q.cpu(), q.cpu(), q.cpu(), backend="cuda")
