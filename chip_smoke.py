@@ -13,15 +13,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 spills `-Xptxas -v` reports; then counts, in each K9
                 variant's SASS (`cuobjdump -sass`), the wgmma (HGMMA), TMA
                 load (UTMALDG), cp.async (LDGSTS) and FFMA instructions, and
-                fails unless every bf16 variant has HGMMA and UTMALDG and
-                every float32 one LDGSTS;
+                in each K5/K6 variant's the global loads and stores (LDG,
+                STG) and those 128 bits wide, and fails unless every bf16
+                K9 variant has HGMMA and UTMALDG, every float32 one LDGSTS,
+                and every vector K5/K6 variant 128-bit loads and stores;
   3. kernels  — each CUDA kernel (K1 solve_r, K2 solve_w, K3 block_thomas,
                 K4 lateral_flux, K5 soa_to_cell, K6 cell_to_soa, K7 tridiag)
                 against its plain PyTorch version at the main path's shapes,
                 in float32 and float64, from seeded numpy inputs, with
                 CUDA-event times against the memory bound (K5/K6 must equal
-                their plain versions bitwise, also at a ragged nt; their
-                one-call PyTorch permutation is timed beside them);
+                their plain versions bitwise, at nt = 160,000 through the
+                vector variant, at a ragged nt and with inputs that are not
+                16-byte aligned through the scalar one, each case's variant
+                checked and logged; their one-call PyTorch permutation is
+                timed beside them, and both also by torch.profiler's device
+                time per kernel, by events with the device kept busy while
+                the host enqueues, and in one CUDA graph of 20 calls, with
+                the wrapper's host time per call);
   4. main path — 3 steps of the quickstart's baroclinic-front case widened to
                 rect_mesh(400, 200) (~333 m cells, 160,000 triangles, 16
                 layers; 20 external sub-steps, which the setup picks for
@@ -75,6 +83,9 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {torch.float32: 67e12,  # H100 SXM vector peaks, no tensor cores
               torch.float64: 34e12,  # (NVIDIA data sheet); bf16: dense
               torch.bfloat16: 989e12}  # tensor-core peak
+# cycles of the sleep kernel that primes an event timing: ~10 ms at the
+# H100's 1,980 MHz, longer than the host takes to enqueue 20 calls
+PRIME_CYCLES = 20_000_000
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12,
        # model kernels against their plain versions, each output row (one
        # query or token of one head) against its own largest |plain|: bf16
@@ -165,14 +176,19 @@ def nvidia_smi() -> str:
 # phase 2: build report
 # ---------------------------------------------------------------------------
 def kernel_variant(name: str):
-    """'solve_r_f32', 'block_thomas_f64_k2', 'flash_attention_bf16_d128'
-    from a mangled entry name, or None (K9's kernels are flash_bf16_kernel<D>
-    and flash_f32_kernel<D>).  The kernel's identifier is found by
-    its length prefix, since the (anonymous) namespace's mangled name before
-    it may end in digits."""
+    """'solve_r_f32', 'block_thomas_f64_k2', 'flash_attention_bf16_d128',
+    'soa_to_cell_f32_v4' from a mangled entry name, or None (K9's kernels
+    are flash_bf16_kernel<D> and flash_f32_kernel<D>, K5/K6's
+    soa_to_cell_kernel<T, VEC, N> and cell_to_soa_kernel<T, VEC, N>).  The
+    kernel's identifier is found by its length prefix, since the
+    (anonymous) namespace's mangled name before it may end in digits."""
     fa = re.search(r"flash_(bf16|f32)_kernelILi(\d+)E", name)
     if fa:
         return f"flash_attention_{fa.group(1)}_d{fa.group(2)}"
+    ct = re.search(r"(soa_to_cell|cell_to_soa)_kernelI(f|d)Li(\d+)E", name)
+    if ct:     # K5 / K6: v = elements per access, 1 in the scalar variant
+        dt = {"f": "f32", "d": "f64"}[ct.group(2)]
+        return f"{ct.group(1)}_{dt}_v{ct.group(3)}"
     k = re.search(r"_kernelI(f|d|13__nv_bfloat16)(?:Li(\d+)E)?", name)
     if not k:
         return None
@@ -215,6 +231,9 @@ def ptxas_summary(report: str) -> dict:
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "FFMA")
+# K5/K6: global loads and stores, and those 128 bits wide (`.128`)
+COPY_OPS = ("LDG", "STG", "LDG.128", "STG.128")
+COPY_KERNELS = ("soa_to_cell", "cell_to_soa")
 
 
 def disassembler() -> str:
@@ -235,8 +254,10 @@ def disassembler() -> str:
 
 
 def sass_counts(so: Path) -> tuple:
-    """({K9 variant: {op: count}} for the ops of SASS_OPS, the tool used),
-    from `cuobjdump -sass` of the built library."""
+    """({variant: {op: count}}, the tool used) from `cuobjdump -sass` of the
+    built library: the ops of SASS_OPS in each K9 variant, those of
+    COPY_OPS in each K5/K6 variant (an opcode with a `.128` modifier, as
+    in `LDG.E.EF.128`, counts under its op and under op.128)."""
     tool = disassembler()
     text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                           text=True, check=True).stdout
@@ -244,22 +265,39 @@ def sass_counts(so: Path) -> tuple:
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            var = kernel_variant(m.group(1))
-            cur = var if var and var.startswith("flash_attention") else None
+            var = kernel_variant(m.group(1)) or ""
+            cur = None
+            if var.startswith("flash_attention"):
+                cur, ops = var, SASS_OPS
+            elif var.startswith(COPY_KERNELS):
+                cur, ops = var, COPY_OPS
             if cur:
-                out[cur] = dict.fromkeys(SASS_OPS, 0)
+                out[cur] = dict.fromkeys(ops, 0)
             continue
         if cur:
-            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
-            if m and m.group(1) in out[cur]:
-                out[cur][m.group(1)] += 1
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                          r"([A-Z][A-Z0-9]*)((?:\.[A-Z0-9_]+)*)", line)
+            if not m:
+                continue
+            op, mods = m.group(1), m.group(2).split(".")[1:]
+            if op in out[cur]:
+                out[cur][op] += 1
+            if "128" in mods and f"{op}.128" in out[cur]:
+                out[cur][f"{op}.128"] += 1
     return out, tool
 
 
 def check_sass(counts: dict) -> None:
     """Every bf16 K9 variant issues wgmma (HGMMA) and TMA loads (UTMALDG);
-    every float32 one cp.async (LDGSTS)."""
+    every float32 one cp.async (LDGSTS); every vector K5/K6 variant
+    (float4, double2) 128-bit global loads and stores."""
     from repro_torch.kernels.flash_attention import HEAD_DIMS
+    for kernel in COPY_KERNELS:
+        for var in (f"{kernel}_f32_v4", f"{kernel}_f64_v2"):
+            c = counts.get(var, {})
+            if not c.get("LDG.128") or not c.get("STG.128"):
+                raise AssertionError(f"{var}: no 128-bit global loads or "
+                                     f"stores in its SASS ({c})")
     for d in HEAD_DIMS:
         bf, f32 = (counts.get(f"flash_attention_{dt}_d{d}", {})
                    for dt in ("bf16", "f32"))
@@ -274,17 +312,37 @@ def check_sass(counts: dict) -> None:
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
+def time_ms(fn, reps: int, warmup: int = 2, primed: bool = False) -> float:
+    """Mean ms per call of ``fn``, by CUDA events around ``reps`` calls.
+    ``primed``: a sleep kernel holds the device while the host enqueues the
+    calls, so that no call finds the device idle, waiting for the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if primed:
+        torch.cuda._sleep(PRIME_CYCLES)
     a.record()
     for _ in range(reps):
         fn()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean ms per call of ``fn``, with ``reps`` calls captured in one CUDA
+    graph and the graph replayed, primed, between CUDA events: no host work
+    lies between two kernels."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    ms = time_ms(g.replay, reps=1, warmup=1, primed=True) / reps
+    del g
+    return ms
 
 
 def nbytes(*ts) -> int:
@@ -327,14 +385,26 @@ def kernel_cases(nt: int, nl: int, seed: int):
     def on(dtype, *arrs):
         return [torch.as_tensor(a).to(device="cuda", dtype=dtype) for a in arrs]
 
+    def unaligned(dtype, a):
+        """``a`` on the card, contiguous, with its data one element past a
+        16-byte boundary: the view [1:] of a buffer one element longer."""
+        buf = torch.empty(a.size + 1, dtype=dtype, device="cuda")
+        t = buf[1:].view(a.shape)
+        t.copy_(torch.as_tensor(a))
+        return [t]
+
     def bt_flops(k):
         per_layer = 36 * 13 + 6 * k * 13 + 6 * (133 + 11 * k)
         return nt * (nl * per_layer + (nl - 1) * 6 * k * 13)
 
     def case(name, label, kern, plain, inputs, flops, exact=False,
-             library=None):
+             library=None, variant=None):
         return dict(name=name, label=label, kern=kern, plain=plain,
-                    inputs=inputs, flops=flops, exact=exact, library=library)
+                    inputs=inputs, flops=flops, exact=exact, library=library,
+                    variant=variant)
+
+    to_cells = lambda x: x.view(nl * 6, nc, 128).transpose(0, 1).contiguous()
+    to_soa = lambda c: c.transpose(0, 1).contiguous()
 
     return [
         case("solve_r", "K=2", matrix_free.solve_r, matrix_free.solve_r_plain,
@@ -353,27 +423,65 @@ def kernel_cases(nt: int, nl: int, seed: int):
              lambda d: on(d, f4, fext4, speed, elen), 4 * nl * nt * 300),
         case("soa_to_cell", f"nt={nt}", cell_transpose.soa_to_cell,
              cell_transpose.soa_to_cell_plain, lambda d: on(d, field), 0,
-             exact=True,
-             library=lambda x: x.view(nl * 6, nc, 128).transpose(0, 1)
-             .contiguous()),
+             exact=True, library=to_cells, variant="vector"),
         case("soa_to_cell", f"nt={rag}", cell_transpose.soa_to_cell,
              cell_transpose.soa_to_cell_plain,
-             lambda d: on(d, field[..., :rag]), 0, exact=True),
+             lambda d: on(d, field[..., :rag]), 0, exact=True,
+             variant="scalar"),
+        case("soa_to_cell", f"nt={nt} unaligned", cell_transpose.soa_to_cell,
+             cell_transpose.soa_to_cell_plain,
+             lambda d: unaligned(d, field), 0, exact=True, library=to_cells,
+             variant="scalar"),
         case("cell_to_soa", f"nt={nt}",
              lambda c: cell_transpose.cell_to_soa(c, nt),
              lambda c: cell_transpose.cell_to_soa_plain(c, nt),
-             lambda d: on(d, cells), 0, exact=True,
-             library=lambda c: c.transpose(0, 1).contiguous()),
+             lambda d: on(d, cells), 0, exact=True, library=to_soa,
+             variant="vector"),
         case("cell_to_soa", f"nt={rag}",
              lambda c: cell_transpose.cell_to_soa(c, rag),
              lambda c: cell_transpose.cell_to_soa_plain(c, rag),
-             lambda d: on(d, cells[:-(-rag // 128)]), 0, exact=True),
+             lambda d: on(d, cells[:-(-rag // 128)]), 0, exact=True,
+             variant="scalar"),
+        case("cell_to_soa", f"nt={nt} unaligned",
+             lambda c: cell_transpose.cell_to_soa(c, nt),
+             lambda c: cell_transpose.cell_to_soa_plain(c, nt),
+             lambda d: unaligned(d, cells), 0, exact=True, library=to_soa,
+             variant="scalar"),
         case("tridiag", f"nt={nt}", tridiag.tridiag, tridiag.tridiag_plain,
              lambda d: on(d, lo_t, d_t, up_t, b_t), 8 * nl * nt),
         case("tridiag", f"nt={rag}", tridiag.tridiag, tridiag.tridiag_plain,
              lambda d: on(d, *(a[:, :rag] for a in (lo_t, d_t, up_t, b_t))),
              8 * nl * rag),
     ]
+
+
+def device_ms(fn, reps: int) -> tuple:
+    """(device ms per kernel, kernels per call) from torch.profiler over
+    ``reps`` calls of ``fn`` (each launches one kernel; a trace that drops
+    an event shows fewer); (None, 0) if the trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    us = sum(e.time_range.elapsed_us() for e in kernels)
+    if not us:
+        return None, 0
+    return us / 1e3 / len(kernels), len(kernels) / reps
+
+
+def copy_plan(name: str, ins, out) -> dict:
+    """The launch plan K5 / K6 took for ``ins`` -> ``out``."""
+    from repro_torch.kernels import cell_transpose
+    soa = ins[0] if name == "soa_to_cell" else out
+    return cell_transpose.launch_plan(soa.shape[0] * 6, soa.shape[2],
+                                      soa.dtype, ins[0].data_ptr(),
+                                      out.data_ptr())
 
 
 def moved_bytes(name: str, ins, out) -> int:
@@ -384,7 +492,22 @@ def moved_bytes(name: str, ins, out) -> int:
     return nbytes(*ins, out)
 
 
+def host_us(fn, reps: int = 20) -> float:
+    """Host time per call of ``fn`` in µs, enqueued back to back without a
+    synchronise (the launch queue does not fill at this depth): when it
+    exceeds the kernel's device time, event times measure the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
 def phase_kernels(nt: int, nl: int, seed: int) -> dict:
+    """Phase 3: every case of ``kernel_cases`` in float32 and float64."""
     results = {}
     for c in kernel_cases(nt, nl, seed):
         name, label, kern, plain = c["name"], c["label"], c["kern"], c["plain"]
@@ -408,6 +531,13 @@ def phase_kernels(nt: int, nl: int, seed: int) -> dict:
                                          f"{err:.3e} > {TOL[dtype]:.0e} * "
                                          f"{scale:.3e}")
                 tol_txt = f"tol {TOL[dtype]:.0e} x {scale:.3e}"
+            plan = extra = None
+            if c["variant"] is not None:
+                plan = copy_plan(name, ins, out)
+                if plan["variant"] != c["variant"]:
+                    raise AssertionError(f"{name} {label} {dtype}: took the "
+                                         f"{plan['variant']} variant, not "
+                                         f"{c['variant']}")
             ms = time_ms(lambda: kern(*ins), reps=20)
             plain_ms = time_ms(lambda: plain(*ins), reps=3, warmup=1)
             library_ms = None
@@ -416,13 +546,50 @@ def phase_kernels(nt: int, nl: int, seed: int) -> dict:
                 if not torch.equal(lib_out.reshape(out.shape), out):
                     raise AssertionError(f"{name} {label} {dtype}: the library "
                                          "call computes another function")
+                del lib_out
                 library_ms = time_ms(lambda: c["library"](*ins), reps=20)
+            if plan is not None:
+                prof_ms, per_call = device_ms(lambda: kern(*ins), reps=20)
+                lib_prof_ms = lib_per_call = lib_primed = lib_graph = None
+                if c["library"] is not None:
+                    lib_prof_ms, lib_per_call = device_ms(
+                        lambda: c["library"](*ins), reps=20)
+                    lib_primed = time_ms(lambda: c["library"](*ins), reps=20,
+                                         primed=True)
+                    lib_graph = graph_ms(lambda: c["library"](*ins), reps=20)
+                extra = dict(variant=plan["variant"], vec=plan["vec"],
+                             per_thread=plan["per_thread"], grid=plan["grid"],
+                             prof_ms=prof_ms, library_prof_ms=lib_prof_ms,
+                             primed_ms=time_ms(lambda: kern(*ins), reps=20,
+                                               primed=True),
+                             graph_ms=graph_ms(lambda: kern(*ins), reps=20),
+                             library_primed_ms=lib_primed,
+                             library_graph_ms=lib_graph,
+                             host_us=host_us(lambda: kern(*ins)))
             moved = moved_bytes(name, ins, out)
             t_bytes = moved / HBM_BYTES_PER_S * 1e3
             t_ops = c["flops"] / PEAK_FLOPS[dtype] * 1e3
             bound = max(t_bytes, t_ops)
             dt = "f32" if dtype == torch.float32 else "f64"
             lib_txt = "" if library_ms is None else f" library_ms={library_ms:.4f}"
+            if extra is not None:
+                fmt = lambda t: "not measured" if t is None else f"{t:.4f}"
+                share = lambda t: "" if t is None else f", {bound / t:.3f} of bound"
+                lib_txt += (f" variant={extra['variant']} (vec {extra['vec']}, "
+                            f"{extra['per_thread']} per thread, grid "
+                            f"{extra['grid']}) profiler device ms per kernel: "
+                            f"kernel {fmt(extra['prof_ms'])} ({per_call:g} "
+                            f"kernels a call{share(extra['prof_ms'])}; host "
+                            f"{extra['host_us']:.1f} us a call)")
+                if c["library"] is not None:
+                    lib_txt += (f", library {fmt(extra['library_prof_ms'])} "
+                                f"({lib_per_call:g} kernels a call"
+                                f"{share(extra['library_prof_ms'])})")
+                lib_txt += (f"; events primed ms: kernel "
+                            f"{extra['primed_ms']:.4f}, library "
+                            f"{fmt(extra['library_primed_ms'])}; CUDA graph "
+                            f"ms: kernel {extra['graph_ms']:.4f}, library "
+                            f"{fmt(extra['library_graph_ms'])}")
             log(f"kernel {name} {label} {dt}: shape={tuple(ins[0].shape)} "
                 f"max_abs_err={err:.3e} ({tol_txt}) "
                 f"ms={ms:.4f} plain_ms={plain_ms:.3f}{lib_txt} bytes={moved} "
@@ -433,7 +600,8 @@ def phase_kernels(nt: int, nl: int, seed: int) -> dict:
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=moved, flops=c["flops"], shape=list(ins[0].shape))
+                bytes=moved, flops=c["flops"], shape=list(ins[0].shape),
+                **(extra or {}))
             del ins, out, ref
     torch.cuda.empty_cache()
     return results
@@ -926,6 +1094,19 @@ def main() -> int:
             ms_f64=r64["ms"], bound_ms_f64=r64["bound_ms"],
             plain_ms_f64=r64["plain_ms"], library_ms_f64=r64["library_ms"],
             max_abs_err_f64=r64["max_abs_err"]))
+        if name in COPY_KERNELS:
+            # every K5 / K6 case: the vector one above, the scalar ones
+            cases = {}
+            for (n, lab, dt), r in kres.items():
+                if n == name:
+                    cases.setdefault(lab, {})[dt] = {k: r.get(k) for k in (
+                        "variant", "ms", "prof_ms", "primed_ms", "graph_ms",
+                        "host_us", "bound_ms", "library_ms", "library_prof_ms",
+                        "library_primed_ms", "library_graph_ms", "plain_ms",
+                        "max_abs_err", "shape")}
+            table[-1]["cases"] = cases
+            table[-1]["sass"] = {v: n for v, n in sass.items()
+                                 if v.startswith(name)}
     for row in model_rows(model):
         if row["name"] == "flash_attention":
             row["sass"] = sass

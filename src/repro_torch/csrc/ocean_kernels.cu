@@ -343,39 +343,122 @@ lateral_flux_kernel(const T* __restrict__ f, const T* __restrict__ fext,
 // Replace the TPU kernels repro/kernels/cell_transpose.py::soa_to_cell
 // (_to_cell_kernel) and ::cell_to_soa (_from_cell_kernel).
 // Bound on the H100: memory.  A pure copy: each element is read once and
-// written once, no arithmetic.  In memory the transform is a block
-// permutation, not a transpose: row r (= layer*6 + node) of the SoA field is
-// cut into 128-wide segments and segment c lands at row r of cell c, so a
-// 128-element run is contiguous on both sides.  Design: a block of
-// 128 x kRowsPerBlock threads copies kRowsPerBlock such runs of one cell,
-// thread x walking the run, so neighbouring threads touch neighbouring
-// addresses on both sides.  The pad lanes of the last cell (column >= nt)
-// are written as zeros by K5 and skipped by K6: the bounds check replaces
-// the TPU version's separate padding pass (layout.pad_nt).
+// written once, no arithmetic, so the byte bound is the only one.  In memory
+// the transform is a block permutation, not a transpose: row r (= layer*6 +
+// node) of the SoA field is cut into 128-element runs and run c lands at row
+// r of cell c, so a run is contiguous on both sides (512 B in float32, 1 KiB
+// in float64).
+// What held a one-element-per-thread copy back is bytes in flight: one 4- or
+// 8-byte load per thread lets an SM's 2,048 threads keep at most 8 KiB
+// (float32) / 16 KiB (float64) of loads in flight, where 3.35 TB/s over
+// ~0.7 us of DRAM latency needs ~18 KiB per SM.
+// Design: the copy is cut into chunks, the 32 * VEC elements a warp moves
+// with one VEC-wide access per lane (a run is 128 / (32 * VEC) chunks),
+// numbered in the order of the side written: chunk u = (c * rows + r) *
+// chunks_per_run + h for K5, (r * n_cells + c) * chunks_per_run + h for K6,
+// so the warps of a block store to neighbouring addresses, and where a
+// ragged nt puts SoA runs off the 32-byte sectors, the two halves of a
+// sector are written by neighbouring warps at once.  Warp w of block b moves
+// chunks b * 8 * N + i * 8 + w, i < N, and each thread issues all N loads
+// before its first store.  Two variants, chosen by the launch plan in Python
+// (kernels/cell_transpose.py: launch_plan) and checked by the launcher:
+//  - vector: 16-byte accesses (float4 / double2), N = 8, so 128 B in flight
+//    per thread; taken when nt % VEC == 0 and both pointers are 16-byte
+//    aligned, so that every SoA run starts on a 16-byte boundary and the
+//    live columns of the last cell are whole vectors.  Its loads and stores
+//    stream (evict-first: every byte is touched once, and the float32 field
+//    outgrows the 50 MB L2);
+//  - scalar: one element per access, N = 16 (float32) / 8 (float64), so
+//    64 B in flight per thread; for every other nt (a ragged mesh, a rank's
+//    share of one) or pointer.  No cache hints: its runs are off the
+//    sectors and lines on one side, whose other parts a neighbouring chunk
+//    reads or writes later; evict-first loads slowed K6 by up to 13 % on an
+//    H100 (PERF.md).
+// The pad lanes of the last cell (column >= nt) are written as zeros by K5
+// and neither read nor written by K6.  Chunk numbers are 32-bit (the plan
+// keeps the grid's chunks under 2^32), so a chunk's cell and row cost two
+// 32-bit divisions.
 // ---------------------------------------------------------------------------
 constexpr int kCell = 128;
-constexpr int kRowsPerBlock = 4;
+constexpr int kCopyThreads = 256;
+constexpr int kCopyWarps = kCopyThreads / 32;
 
-template <typename T>
-__global__ void __launch_bounds__(kCell * kRowsPerBlock)
-soa_to_cell_kernel(const T* __restrict__ x, T* __restrict__ out,
-                   int64_t rows, int64_t nt) {
-  const int64_t c = blockIdx.x;
-  const int64_t r = static_cast<int64_t>(blockIdx.y) * kRowsPerBlock + threadIdx.y;
-  if (r >= rows) return;
-  const int64_t col = c * kCell + threadIdx.x;
-  out[(c * rows + r) * kCell + threadIdx.x] = col < nt ? x[r * nt + col] : T(0);
+template <typename T, int VEC> struct Access;
+template <> struct Access<float, 1> { using type = float; };
+template <> struct Access<float, 4> { using type = float4; };
+template <> struct Access<double, 1> { using type = double; };
+template <> struct Access<double, 2> { using type = double2; };
+
+// the launch plans built (kernels/cell_transpose.py: launch_plan): elements
+// per vector access, and accesses each thread issues before its first store
+template <typename T> struct CopyPlan {
+  static constexpr int kVec = 16 / sizeof(T);
+  static constexpr int kVecPerThread = 8;
+  static constexpr int kScalarPerThread = sizeof(T) == 4 ? 16 : 8;
+};
+
+template <typename V, bool STREAM>
+__device__ __forceinline__ V load_v(const V* p) {
+  if constexpr (STREAM) return __ldcs(p);
+  else return *p;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kCell * kRowsPerBlock)
-cell_to_soa_kernel(const T* __restrict__ x, T* __restrict__ out,
-                   int64_t rows, int64_t nt) {
-  const int64_t c = blockIdx.x;
-  const int64_t r = static_cast<int64_t>(blockIdx.y) * kRowsPerBlock + threadIdx.y;
-  const int64_t col = c * kCell + threadIdx.x;
-  if (r >= rows || col >= nt) return;
-  out[r * nt + col] = x[(c * rows + r) * kCell + threadIdx.x];
+template <typename V, bool STREAM>
+__device__ __forceinline__ void store_v(V* p, const V& v) {
+  if constexpr (STREAM) __stcs(p, v);
+  else *p = v;
+}
+
+template <typename T, int VEC, int N, bool TO_CELL>
+__device__ __forceinline__ void cell_copy(const T* __restrict__ src,
+                                          T* __restrict__ dst, int64_t rows,
+                                          int64_t nt, uint32_t units) {
+  using V = typename Access<T, VEC>::type;
+  constexpr uint32_t kChunk = 32 * VEC;
+  constexpr uint32_t kPerRun = kCell / kChunk;
+  constexpr bool kStream = VEC > 1;
+  const uint32_t lane = threadIdx.x % 32;
+  // chunks per cell (K5) or per SoA row (K6): the outer index of the order
+  const uint32_t outer = static_cast<uint32_t>(TO_CELL ? rows : (nt + kCell - 1) / kCell);
+  const uint32_t per_outer = outer * kPerRun;
+  const uint32_t first = blockIdx.x * (kCopyWarps * N) + threadIdx.x / 32;
+  V v[N];
+  int64_t to[N];
+  bool put[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const uint32_t u = first + i * kCopyWarps;
+    const uint32_t a = u / per_outer, rem = u - a * per_outer;
+    const uint32_t b = rem / kPerRun, h = rem - b * kPerRun;
+    const uint32_t c = TO_CELL ? a : b, r = TO_CELL ? b : a;
+    const int64_t off = h * kChunk + lane * VEC;
+    const int64_t col = static_cast<int64_t>(c) * kCell + off;
+    const int64_t cell_i = (static_cast<int64_t>(c) * rows + r) * kCell + off;
+    const int64_t soa_i = r * nt + col;
+    const bool live = u < units && col < nt;
+    v[i] = live ? load_v<V, kStream>(
+                      reinterpret_cast<const V*>(src + (TO_CELL ? soa_i : cell_i)))
+                : V{};
+    to[i] = TO_CELL ? cell_i : soa_i;
+    put[i] = TO_CELL ? u < units : live;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (put[i]) store_v<V, kStream>(reinterpret_cast<V*>(dst + to[i]), v[i]);
+}
+
+template <typename T, int VEC, int N>
+__global__ void __launch_bounds__(kCopyThreads)
+soa_to_cell_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t rows,
+                   int64_t nt, uint32_t units) {
+  cell_copy<T, VEC, N, true>(x, out, rows, nt, units);
+}
+
+template <typename T, int VEC, int N>
+__global__ void __launch_bounds__(kCopyThreads)
+cell_to_soa_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t rows,
+                   int64_t nt, uint32_t units) {
+  cell_copy<T, VEC, N, false>(x, out, rows, nt, units);
 }
 
 // ---------------------------------------------------------------------------
@@ -486,18 +569,42 @@ int launch_lateral_flux(const void* f, const void* fext, const void* speed,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int VEC, int N>
+void launch_copy(bool to_cell, const void* x, void* out, int64_t rows, int64_t nt,
+                 uint32_t units, int64_t grid, cudaStream_t stream) {
+  if (to_cell)
+    soa_to_cell_kernel<T, VEC, N><<<static_cast<unsigned>(grid), kCopyThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(out), rows, nt, units);
+  else
+    cell_to_soa_kernel<T, VEC, N><<<static_cast<unsigned>(grid), kCopyThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(out), rows, nt, units);
+}
+
+// K5 / K6 with the launch plan computed in Python: the launcher refuses a
+// plan that is not the one it builds for these rows, nt and pointers
 template <typename T>
 int launch_cell_transpose(bool to_cell, const void* x, void* out, int64_t rows,
-                          int64_t nt, void* stream) {
-  const dim3 block(kCell, kRowsPerBlock);
-  const dim3 grid(static_cast<unsigned>((nt + kCell - 1) / kCell),
-                  static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock));
-  if (to_cell)
-    soa_to_cell_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), static_cast<T*>(out), rows, nt);
+                          int64_t nt, int64_t vec, int64_t per_thread,
+                          int64_t threads, int64_t grid, void* stream) {
+  using P = CopyPlan<T>;
+  if (rows < 1 || nt < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vector = nt % P::kVec == 0 &&
+                      reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int64_t v = vector ? P::kVec : 1;
+  const int64_t n = vector ? P::kVecPerThread : P::kScalarPerThread;
+  const int64_t units = (nt + kCell - 1) / kCell * rows * (kCell / (32 * v));
+  const int64_t per_block = kCopyWarps * n;
+  const int64_t blocks = (units + per_block - 1) / per_block;
+  if (vec != v || per_thread != n || threads != kCopyThreads || grid != blocks ||
+      blocks * per_block >= (int64_t(1) << 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t u = static_cast<uint32_t>(units);
+  if (vector)
+    launch_copy<T, P::kVec, P::kVecPerThread>(to_cell, x, out, rows, nt, u, grid, s);
   else
-    cell_to_soa_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), static_cast<T*>(out), rows, nt);
+    launch_copy<T, 1, P::kScalarPerThread>(to_cell, x, out, rows, nt, u, grid, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -544,12 +651,16 @@ const char* ocean_error_string(int err) {
                                   edges, k, nl, nt, stream);                    \
   }                                                                             \
   int soa_to_cell_##SUFFIX(const void* x, void* out, int64_t rows, int64_t nt,  \
-                           void* stream) {                                      \
-    return launch_cell_transpose<T>(true, x, out, rows, nt, stream);            \
+                           int64_t vec, int64_t per_thread, int64_t threads,    \
+                           int64_t grid, void* stream) {                        \
+    return launch_cell_transpose<T>(true, x, out, rows, nt, vec, per_thread,    \
+                                    threads, grid, stream);                     \
   }                                                                             \
   int cell_to_soa_##SUFFIX(const void* x, void* out, int64_t rows, int64_t nt,  \
-                           void* stream) {                                      \
-    return launch_cell_transpose<T>(false, x, out, rows, nt, stream);           \
+                           int64_t vec, int64_t per_thread, int64_t threads,    \
+                           int64_t grid, void* stream) {                        \
+    return launch_cell_transpose<T>(false, x, out, rows, nt, vec, per_thread,   \
+                                    threads, grid, stream);                     \
   }                                                                             \
   int tridiag_##SUFFIX(const void* dl, const void* d, const void* du,           \
                        const void* b, void* x, void* cp, int64_t nl, int64_t C, \

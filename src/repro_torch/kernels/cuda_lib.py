@@ -45,8 +45,10 @@ _ARGTYPES = {
     "solve_w": [_P, _P, _P, _P, _I, _I, _I, _P],
     "block_thomas": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "lateral_flux": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "soa_to_cell": [_P, _P, _I, _I, _P],
-    "cell_to_soa": [_P, _P, _I, _I, _P],
+    # ..., then the launch plan: vec, per_thread, threads, grid
+    # (kernels/cell_transpose.py: launch_plan)
+    "soa_to_cell": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "cell_to_soa": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "tridiag": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "wkv6": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # ..., then the launch plan: block_q, block_k, chunk, stages, threads,

@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch port: each CUDA kernel (K1-K9) against its
-plain PyTorch version on the card (K5/K6 bitwise; K8/K9 in float32 and
-bfloat16), the wrappers' input checks, a short step of the cuda backend
+plain PyTorch version on the card (K5/K6 bitwise, through both variants
+and from data that is not 16-byte aligned; K8/K9 in float32 and bfloat16),
+the wrappers' input checks, a short step of the cuda backend
 against the plain backend, and the step boundary with its dispatch counts.
 
 Run on a machine with a CUDA card (no JAX needed):
@@ -19,7 +20,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import quickstart  # noqa: E402
 from repro_torch.core import stepper  # noqa: E402
-from repro_torch.kernels import (cell_transpose, column_solve,  # noqa: E402
+from repro_torch.kernels import (cell_transpose, column_solve, cuda_lib,  # noqa: E402
                                  dispatch, flash_attention, horizontal_flux,
                                  matrix_free, ops, tridiag, wkv6)
 from repro_torch.obs import metrics  # noqa: E402
@@ -128,9 +129,11 @@ def test_step_cuda_matches_plain(cuda):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("nt", [1, 127, 128, 129, 300, 1000])
-@pytest.mark.parametrize("nl", [1, 3, 16])
+@pytest.mark.parametrize("nt", [1, 2, 127, 128, 129, 130, 300, 1000, 1003])
+@pytest.mark.parametrize("nl", [1, 3, 16, 64])
 def test_cell_transpose_kernels(cuda, dtype, nl, nt):
+    """nt = 0, 1, 2, 3 (mod 4): the vector variant where nt is a whole
+    number of 16-byte vectors, the scalar one elsewhere."""
     rng = np.random.default_rng(nl * 1000 + nt)
     (x,) = _on(cuda, dtype, rng.normal(size=(nl, 6, nt)))
     c = cell_transpose.soa_to_cell(x)
@@ -143,6 +146,65 @@ def test_cell_transpose_kernels(cuda, dtype, nl, nt):
     assert torch.equal(back, cell_transpose.cell_to_soa_plain(c, nt))
     assert torch.equal(back, x)
     torch.cuda.synchronize()
+
+
+def _unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nt", [128, 1000, 1003])
+@pytest.mark.parametrize("nl", [1, 16])
+def test_cell_transpose_unaligned_pointers(cuda, dtype, nl, nt):
+    """Inputs with a storage offset of one element take the scalar variant
+    and stay bitwise equal to the plain versions."""
+    rng = np.random.default_rng(nl * 1000 + nt + 7)
+    (x,) = _on(cuda, dtype, rng.normal(size=(nl, 6, nt)))
+    xu = _unaligned(x)
+    assert xu.is_contiguous() and xu.data_ptr() % cell_transpose.ALIGN
+    c = cell_transpose.soa_to_cell(xu)
+    plan = cell_transpose.launch_plan(nl * 6, nt, dtype, xu.data_ptr(),
+                                      c.data_ptr())
+    assert plan["variant"] == "scalar"
+    assert torch.equal(c, cell_transpose.soa_to_cell_plain(x))
+    cu = _unaligned(c)
+    back = cell_transpose.cell_to_soa(cu, nt)
+    plan = cell_transpose.launch_plan(nl * 6, nt, dtype, cu.data_ptr(),
+                                      back.data_ptr())
+    assert plan["variant"] == "scalar"
+    assert torch.equal(back, cell_transpose.cell_to_soa_plain(c, nt))
+    assert torch.equal(back, x)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cell_transpose_launcher_refuses_other_plans(cuda, dtype):
+    """The C launcher takes only the plan it builds for these rows, nt and
+    pointers: the scalar plan on aligned data, the vector plan on unaligned
+    data, another grid or block size are refused before any launch."""
+    rows, nt = 12, 1000
+    x = torch.zeros((rows // 6, 6, nt), dtype=dtype, device=cuda)
+    out = torch.empty((8, rows, 128), dtype=dtype, device=cuda)
+    xu = _unaligned(x)
+    vec = cell_transpose.launch_plan(rows, nt, dtype, x.data_ptr(),
+                                     out.data_ptr())
+    sca = cell_transpose.launch_plan(rows, nt, dtype, xu.data_ptr(),
+                                     out.data_ptr())
+    assert vec["variant"] == "vector" and sca["variant"] == "scalar"
+    keys = ("vec", "per_thread", "threads", "grid")
+    bad = [(x, sca), (xu, vec), (x, dict(vec, grid=vec["grid"] + 1)),
+           (x, dict(vec, threads=128)), (x, dict(vec, per_thread=4))]
+    for src, plan in bad:
+        with pytest.raises(RuntimeError):
+            cuda_lib.launch("soa_to_cell", dtype, cuda, src.data_ptr(),
+                            out.data_ptr(), rows, nt, *(plan[k] for k in keys))
+    cuda_lib.launch("soa_to_cell", dtype, cuda, x.data_ptr(), out.data_ptr(),
+                    rows, nt, *(vec[k] for k in keys))
+    assert torch.equal(out, cell_transpose.soa_to_cell_plain(x))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
