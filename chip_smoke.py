@@ -10,8 +10,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 (ocean_kernels.cu: K1-K7, model_kernels.cu: K8,
                 flash_attention.cu: K9) with one nvcc each, all at once,
                 links them into one library and prints the registers /
-                spills `-Xptxas -v` reports; then counts, in each K9
-                variant's SASS (`cuobjdump -sass`), the wgmma (HGMMA), TMA
+                spills `-Xptxas -v` reports (K3 by instantiation,
+                block_thomas_<dtype>_k<k>_tc<tile>_<variant>); then counts,
+                in each K9 variant's SASS (`cuobjdump -sass`), the wgmma (HGMMA), TMA
                 load (UTMALDG), cp.async (LDGSTS) and FFMA instructions, and
                 in each K5/K6 variant's the global loads and stores (LDG,
                 STG) and those 128 bits wide, and fails unless every bf16
@@ -20,9 +21,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   3. kernels  — each CUDA kernel (K1 solve_r, K2 solve_w, K3 block_thomas,
                 K4 lateral_flux, K5 soa_to_cell, K6 cell_to_soa, K7 tridiag)
                 against its plain PyTorch version at the main path's shapes,
-                in float32 and float64, from seeded numpy inputs, with
-                CUDA-event times against the memory bound (K5/K6 must equal
-                their plain versions bitwise, at nt = 160,000 through the
+                in float32 and float64, from seeded inputs, with
+                CUDA-event times against the memory bound (K3 through its
+                launch plan's onchip tile, then every narrower onchip tile
+                and the global variant, each forced by a lower smem_limit,
+                timed in two rounds, each with its
+                shared bytes, tiles per SM and ptxas registers, the global
+                variant with its scratch traffic; then the shallowest depth
+                the plan sends to the global variant, at the same 160,000
+                columns; K3's bound counts only the blocks its solve reads,
+                not lo[0] and up[nl-1]; K5/K6 must equal their plain versions bitwise, at nt = 160,000 through the
                 vector variant, at a ragged nt and with inputs that are not
                 16-byte aligned through the scalar one, each case's variant
                 checked and logged; their one-call PyTorch permutation is
@@ -176,15 +184,21 @@ def nvidia_smi() -> str:
 # phase 2: build report
 # ---------------------------------------------------------------------------
 def kernel_variant(name: str):
-    """'solve_r_f32', 'block_thomas_f64_k2', 'flash_attention_bf16_d128',
-    'soa_to_cell_f32_v4' from a mangled entry name, or None (K9's kernels
-    are flash_bf16_kernel<D> and flash_f32_kernel<D>, K5/K6's
+    """'solve_r_f32', 'block_thomas_f64_k2_tc16_onchip',
+    'flash_attention_bf16_d128', 'soa_to_cell_f32_v4' from a mangled entry
+    name, or None (K3's kernels are block_thomas_kernel<T, K, TC, ONCHIP>,
+    K9's flash_bf16_kernel<D> and flash_f32_kernel<D>, K5/K6's
     soa_to_cell_kernel<T, VEC, N> and cell_to_soa_kernel<T, VEC, N>).  The
     kernel's identifier is found by its length prefix, since the
     (anonymous) namespace's mangled name before it may end in digits."""
     fa = re.search(r"flash_(bf16|f32)_kernelILi(\d+)E", name)
     if fa:
         return f"flash_attention_{fa.group(1)}_d{fa.group(2)}"
+    bt = re.search(r"block_thomas_kernelI(f|d)Li(\d+)ELi(\d+)ELb([01])E", name)
+    if bt:     # K3: k, tile width, variant
+        dt = {"f": "f32", "d": "f64"}[bt.group(1)]
+        var = "onchip" if bt.group(4) == "1" else "global"
+        return f"block_thomas_{dt}_k{bt.group(2)}_tc{bt.group(3)}_{var}"
     ct = re.search(r"(soa_to_cell|cell_to_soa)_kernelI(f|d)Li(\d+)E", name)
     if ct:     # K5 / K6: v = elements per access, 1 in the scalar variant
         dt = {"f": "f32", "d": "f64"}[ct.group(2)]
@@ -349,23 +363,36 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def held(out, ref, dtype, what: str) -> tuple:
+    """(max |out - ref|, max(|ref|, 1)), raising when the first exceeds
+    TOL[dtype] times the second."""
+    err = float((out - ref).abs().max())
+    scale = max(float(ref.abs().max()), 1.0)
+    if not err <= TOL[dtype] * scale:
+        raise AssertionError(f"{what}: max_abs_err {err:.3e} > "
+                             f"{TOL[dtype]:.0e} * {scale:.3e}")
+    return err, scale
+
+
+def bound_of(moved: int, flops: int, dtype) -> tuple:
+    """(the least ms the card could take, "bytes" or "operations")."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def kernel_cases(nt: int, nl: int, seed: int):
     """One dict per case: name, label, kernel fn, plain fn, inputs builder
     (dtype -> the inputs on the card), flops; `exact` cases must equal their
     plain version bitwise; `library` is one PyTorch call computing the same
     function, timed as a yardstick, or None."""
-    from repro_torch.kernels import (cell_transpose, column_solve,
-                                     horizontal_flux, matrix_free, tridiag)
+    from repro_torch.kernels import (cell_transpose, horizontal_flux,
+                                     matrix_free, tridiag)
     rng = np.random.default_rng(seed)
     r = lambda *s: rng.standard_normal(s, dtype=np.float32)
     F2, bc2 = r(2, nl, 6, nt), r(2, 3, nt)
     F1 = r(1, nl, 6, nt)
     area = (0.5 + rng.random(nt, dtype=np.float32)) * 1e5
-    blk = [0.1 * r(nl, 6, 6, nt) for _ in range(3)]
-    blk[0][0] = 0.0
-    blk[2][-1] = 0.0
-    blk[1] += 2.0 * np.eye(6, dtype=np.float32)[None, :, :, None]
-    rhs = r(2, nl, 6, nt)
     f4, fext4 = r(4, nl, 6, nt), r(4, nl, 3, 2, 2, nt)
     speed = r(nl, 2, 3, 2, nt)
     elen = (0.5 + rng.random((3, nt), dtype=np.float32)) * 300.0
@@ -393,10 +420,6 @@ def kernel_cases(nt: int, nl: int, seed: int):
         t.copy_(torch.as_tensor(a))
         return [t]
 
-    def bt_flops(k):
-        per_layer = 36 * 13 + 6 * k * 13 + 6 * (133 + 11 * k)
-        return nt * (nl * per_layer + (nl - 1) * 6 * k * 13)
-
     def case(name, label, kern, plain, inputs, flops, exact=False,
              library=None, variant=None):
         return dict(name=name, label=label, kern=kern, plain=plain,
@@ -412,9 +435,6 @@ def kernel_cases(nt: int, nl: int, seed: int):
         case("solve_w", "K=1", lambda F, a: matrix_free.solve_w(F, a),
              lambda F, a: matrix_free.solve_w_plain(F, a),
              lambda d: on(d, F1, area), 1 * nt * (nl * 34 + 1)),
-        case("block_thomas", "k=2", column_solve.block_thomas,
-             column_solve.block_thomas_plain,
-             lambda d: on(d, *blk, rhs), bt_flops(2)),
         case("lateral_flux", "k=2", horizontal_flux.lateral_flux,
              horizontal_flux.lateral_flux_plain,
              lambda d: on(d, f4[:2], fext4[:2], speed, elen), 2 * nl * nt * 300),
@@ -517,19 +537,15 @@ def phase_kernels(nt: int, nl: int, seed: int) -> dict:
             torch.cuda.synchronize()
             ref = plain(*ins)
             torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            scale = max(float(ref.abs().max()), 1.0)
             if c["exact"]:
+                err = float((out - ref).abs().max())
                 if out.shape != ref.shape or not torch.equal(out, ref):
                     raise AssertionError(f"{name} {label} {dtype}: not bitwise "
                                          f"equal to its plain version "
                                          f"(max_abs_err {err:.3e})")
                 tol_txt = "bitwise"
             else:
-                if not (err <= TOL[dtype] * scale):
-                    raise AssertionError(f"{name} {label} {dtype}: max_abs_err "
-                                         f"{err:.3e} > {TOL[dtype]:.0e} * "
-                                         f"{scale:.3e}")
+                err, scale = held(out, ref, dtype, f"{name} {label} {dtype}")
                 tol_txt = f"tol {TOL[dtype]:.0e} x {scale:.3e}"
             plan = extra = None
             if c["variant"] is not None:
@@ -567,9 +583,7 @@ def phase_kernels(nt: int, nl: int, seed: int) -> dict:
                              library_graph_ms=lib_graph,
                              host_us=host_us(lambda: kern(*ins)))
             moved = moved_bytes(name, ins, out)
-            t_bytes = moved / HBM_BYTES_PER_S * 1e3
-            t_ops = c["flops"] / PEAK_FLOPS[dtype] * 1e3
-            bound = max(t_bytes, t_ops)
+            bound, by = bound_of(moved, c["flops"], dtype)
             dt = "f32" if dtype == torch.float32 else "f64"
             lib_txt = "" if library_ms is None else f" library_ms={library_ms:.4f}"
             if extra is not None:
@@ -593,17 +607,168 @@ def phase_kernels(nt: int, nl: int, seed: int) -> dict:
             log(f"kernel {name} {label} {dt}: shape={tuple(ins[0].shape)} "
                 f"max_abs_err={err:.3e} ({tol_txt}) "
                 f"ms={ms:.4f} plain_ms={plain_ms:.3f}{lib_txt} bytes={moved} "
-                f"flops={c['flops']} bound_ms={bound:.4f} "
-                f"({'bytes' if t_bytes >= t_ops else 'operations'}) "
+                f"flops={c['flops']} bound_ms={bound:.4f} ({by}) "
                 f"share_of_bound={bound / ms:.3f}")
             results[(name, label, dt)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=moved, flops=c["flops"], shape=list(ins[0].shape),
+                bound_ms=bound, bound_by=by, bytes=moved, flops=c["flops"], shape=list(ins[0].shape),
                 **(extra or {}))
             del ins, out, ref
     torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 3, K3: the plan's variant and the global variant
+# ---------------------------------------------------------------------------
+K3_K = 2                    # right-hand sides of the step's two solves
+
+
+def thomas_inputs(nl: int, k: int, nt: int, seed: int, dtype) -> list:
+    """lo, dg, up (nl, 6, 6, nt) and rhs (k, nl, 6, nt) on the card in
+    ``dtype``, drawn in float32 from ``seed`` (the same draws in either
+    dtype): diagonally dominant blocks shaped like the step's, lo[0] =
+    up[-1] = 0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)
+    lo, dg, up = (r(nl, 6, 6, nt).mul_(0.1) for _ in range(3))
+    lo[0] = 0.0
+    up[-1] = 0.0
+    dg += 2.0 * torch.eye(6, dtype=dtype, device="cuda")[None, :, :, None]
+    return [lo, dg, up, r(k, nl, 6, nt)]
+
+
+def thomas_bytes(lo, dg, up, rhs, x) -> int:
+    """K3's compulsory bytes: the blocks the solve uses (lo but its first
+    layer, dg, up but its last layer) and rhs read once, x written once."""
+    return nbytes(lo[1:], dg, up[:-1], rhs, x)
+
+
+def thomas_flops(nl: int, k: int, nt: int) -> int:
+    """Operations of the elimination: S_l and the right-hand side, six
+    Gauss-Jordan steps, and the backward sweep."""
+    per_layer = 36 * 13 + 6 * k * 13 + 6 * (133 + 11 * k)
+    return nt * (nl * per_layer + (nl - 1) * 6 * k * 13)
+
+
+def thomas_scratch_bytes(plan, nl: int, k: int, itemsize: int) -> int:
+    """Bytes the global variant moves through its scratch beyond the
+    compulsory ones if L2 keeps none of it: forward, [C_l | y_l] written and
+    read back by the next layer; backward, C_l and y_l read, x_l written
+    over y_l and read back by the layer below; per column of its grid."""
+    w = 6 * (6 + k)
+    values = nl * w + (nl - 1) * w + (nl - 1) * (36 + 18 * k)
+    return values * plan["grid"] * plan["tc"] * itemsize
+
+
+def phase_block_thomas(nt: int, nl: int, seed: int, ptxas: dict) -> dict:
+    """Phase 3, K3, in float32 and float64: at the main path's shape through
+    the plan (onchip), then through each narrower onchip tile and the
+    global variant that a lower smem_limit makes the plan take, each held
+    against the plain version and then timed in two rounds, the second in
+    reverse order; then the shallowest depth the plan sends to the global
+    variant, at the same nt, held and timed."""
+    from repro_torch.kernels import column_solve as cs
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        dt = "f32" if dtype == torch.float32 else "f64"
+        ins = thomas_inputs(nl, K3_K, nt, seed, dtype)
+        # each limit just below the last plan's shared bytes: every
+        # narrower onchip tile the plan takes, then the global variant
+        runs, limit = {}, cs.MAX_SMEM
+        while True:
+            p = cs.launch_plan(nl, K3_K, nt, dtype, limit)
+            runs[f"{p['variant']} tc={p['tc']}"] = (p, lambda limit=limit: (
+                cs.block_thomas(*ins, smem_limit=limit)))
+            if p["variant"] == "global":
+                break
+            limit = p["smem"] - 1
+        plan, forced = next(iter(runs.values()))[0], p
+        main, glob = list(runs)[0], list(runs)[-1]
+        if plan["variant"] != "onchip" or len(runs) < 2:
+            raise AssertionError(f"block_thomas {dt}: plans {list(runs)}")
+        ref = cs.block_thomas_plain(*ins)
+        torch.cuda.synchronize()
+        errs = {}
+        for label, (p, fn) in runs.items():
+            out = fn()
+            torch.cuda.synchronize()
+            errs[label], _ = held(out, ref, dtype, f"block_thomas {label} {dt}")
+            del out
+        times = {label: [] for label in runs}
+        for order in (list(runs), list(runs)[::-1]):
+            for label in order:
+                times[label].append(time_ms(runs[label][1], reps=20))
+        plain_ms = time_ms(lambda: cs.block_thomas_plain(*ins), reps=3, warmup=1)
+        moved, flops = thomas_bytes(*ins, ref), thomas_flops(nl, K3_K, nt)
+        bound, by = bound_of(moved, flops, dtype)
+        tiles = {}
+        for label, (p, _) in runs.items():
+            ms = float(np.mean(times[label]))
+            regs = ptxas.get(f"block_thomas_{dt}_k{K3_K}_tc{p['tc']}_{p['variant']}")
+            scratch = (thomas_scratch_bytes(p, nl, K3_K, dtype.itemsize)
+                       if p["variant"] == "global" else 0)
+            per_sm = cs.tiles_per_sm(p, K3_K, dtype)
+            tiles[label] = dict(ms=ms, ms_rounds=times[label], share=bound / ms,
+                                smem=p["smem"], grid=p["grid"], ptxas=regs,
+                                tiles_per_sm=per_sm,
+                                warps_per_sm=per_sm * p["threads"] / 32,
+                                max_abs_err=errs[label], scratch_bytes=scratch)
+            extra = (f" scratch bytes moved {scratch} (if none stays in L2; "
+                     f"{moved + scratch} in all, bound at that traffic "
+                     f"{(moved + scratch) / HBM_BYTES_PER_S * 1e3:.4f} ms)"
+                     if scratch else "")
+            log(f"kernel block_thomas k={K3_K} {dt} {label}: shape="
+                f"{tuple(ins[0].shape)} smem={p['smem']} grid={p['grid']} "
+                f"threads={p['threads']} tiles/SM={per_sm} ptxas={regs} "
+                f"max_abs_err={errs[label]:.3e} (tol {TOL[dtype]:.0e}) ms={ms:.4f} "
+                f"(rounds {', '.join(f'{t:.4f}' for t in times[label])}) "
+                f"bytes={moved} flops={flops} bound_ms={bound:.4f} ({by}) "
+                f"share_of_bound={bound / ms:.3f}{extra}")
+        log(f"kernel block_thomas k={K3_K} {dt}: plan {main} "
+            f"{tiles[main]['ms']:.4f} ms against global "
+            f"{tiles[glob]['ms']:.4f} ms "
+            f"({tiles[glob]['ms'] / tiles[main]['ms']:.3f}x); plain_ms={plain_ms:.3f}")
+        del ins, ref
+        torch.cuda.empty_cache()
+
+        deep_nl = nl
+        while cs.launch_plan(deep_nl, K3_K, nt, dtype)["variant"] == "onchip":
+            deep_nl += 1
+        deep_plan = cs.launch_plan(deep_nl, K3_K, nt, dtype)
+        dins = thomas_inputs(deep_nl, K3_K, nt, seed + 1, dtype)
+        out = cs.block_thomas(*dins)
+        torch.cuda.synchronize()
+        dref = cs.block_thomas_plain(*dins)
+        torch.cuda.synchronize()
+        derr, _ = held(out, dref, dtype, f"block_thomas nl={deep_nl} {dt}")
+        del dref
+        dms = time_ms(lambda: cs.block_thomas(*dins), reps=20)
+        dplain = time_ms(lambda: cs.block_thomas_plain(*dins), reps=1, warmup=1)
+        dmoved = thomas_bytes(*dins, out)
+        dbound, dby = bound_of(dmoved, thomas_flops(deep_nl, K3_K, nt), dtype)
+        dscratch = thomas_scratch_bytes(deep_plan, deep_nl, K3_K, dtype.itemsize)
+        deep = dict(nl=deep_nl, nt=nt, variant=deep_plan["variant"],
+                    tc=deep_plan["tc"], smem=deep_plan["smem"], ms=dms,
+                    plain_ms=dplain, bound_ms=dbound, bound_by=dby,
+                    share=dbound / dms, max_abs_err=derr, bytes=dmoved,
+                    scratch_bytes=dscratch)
+        log(f"kernel block_thomas deep k={K3_K} {dt}: nl={deep_nl} "
+            f"nt={nt} {deep_plan['variant']} tc={deep_plan['tc']} "
+            f"smem={deep_plan['smem']} max_abs_err={derr:.3e} ms={dms:.4f} "
+            f"plain_ms={dplain:.3f} bytes={dmoved} bound_ms={dbound:.4f} "
+            f"({dby}) share_of_bound={dbound / dms:.3f} scratch bytes moved "
+            f"{dscratch} (if none stays in L2)")
+        del dins, out
+        torch.cuda.empty_cache()
+
+        results[("block_thomas", f"k={K3_K}", dt)] = dict(
+            max_abs_err=errs[main], ms=tiles[main]["ms"], plain_ms=plain_ms,
+            library_ms=None, bound_ms=bound, bound_by=by, bytes=moved,
+            flops=flops, shape=[nl, 6, 6, nt], variant="onchip",
+            tc=plan["tc"], smem=plan["smem"], ptxas=tiles[main]["ptxas"],
+            tiles_per_sm=tiles[main]["tiles_per_sm"],
+            ms_global=tiles[glob]["ms"], tiles=tiles, deep=deep)
     return results
 
 
@@ -1069,6 +1234,7 @@ def main() -> int:
 
     # 3. kernels at the main path's shapes
     kres = phase_kernels(2 * NX * (NX // 2), NL, SEED)
+    kres.update(phase_block_thomas(2 * NX * (NX // 2), NL, SEED, ptxas))
 
     # 4. main path: float32 (the run the kernel table's launches come from),
     # then float64, where every field is held to TOL_PATH
@@ -1094,6 +1260,18 @@ def main() -> int:
             ms_f64=r64["ms"], bound_ms_f64=r64["bound_ms"],
             plain_ms_f64=r64["plain_ms"], library_ms_f64=r64["library_ms"],
             max_abs_err_f64=r64["max_abs_err"]))
+        if name == "block_thomas":
+            # the plan's tile, the narrower ones and the global variant
+            # at the main path's shape, and the deep case
+            table[-1].update(
+                variant=r32["variant"], tc=r32["tc"], smem=r32["smem"],
+                ptxas=r32["ptxas"], tiles_per_sm=r32["tiles_per_sm"],
+                ms_global=r32["ms_global"], tc_f64=r64["tc"],
+                smem_f64=r64["smem"], ptxas_f64=r64["ptxas"],
+                tiles_per_sm_f64=r64["tiles_per_sm"],
+                ms_global_f64=r64["ms_global"],
+                cases={"f32": {"tiles": r32["tiles"], "deep": r32["deep"]},
+                       "f64": {"tiles": r64["tiles"], "deep": r64["deep"]}})
         if name in COPY_KERNELS:
             # every K5 / K6 case: the vector one above, the scalar ones
             cases = {}

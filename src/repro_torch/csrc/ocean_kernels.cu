@@ -10,9 +10,12 @@
 // kernels never synchronise and allocate nothing.
 //
 // Layout: K1-K4 and K7 take the stepper's own structure-of-arrays layout
-// with the column (triangle) index innermost, so one thread per column reads
-// neighbouring addresses across a warp (coalesced), and a ragged last block
-// is masked with `if (idx >= n) return;` instead of 128-column padding.
+// with the column (triangle) index innermost, so threads of neighbouring
+// columns read neighbouring addresses across a warp (coalesced).  K1, K2,
+// K4 and K7 run one thread per column and mask a ragged last block with
+// `if (idx >= n) return;` instead of 128-column padding; K3 runs six
+// threads per column, which meet at barriers, so its ragged tile solves
+// identity systems instead of returning.
 // K5/K6 convert between that layout and the 128-column cell layout
 // (n_cells, rows, 128) of the step boundary.
 //
@@ -21,6 +24,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -115,123 +120,182 @@ solve_w_kernel(const T* __restrict__ F, const T* __restrict__ area,
 //
 // Replaces the TPU kernel repro/kernels/column_solve.py::block_thomas_cell
 // (_block_thomas_kernel, _solve6).
-// Bound on the H100: memory in principle (3*36 block entries + 2*6*k
-// RHS/solution values per layer against ~1.6 kflop per layer and column),
-// but the per-thread working set (S, [U | b], C_{l-1}, y_{l-1}: about 132
-// values for k=2) is large: it stays in registers without spilling, but in
-// f64 it takes nearly the per-thread maximum, which caps occupancy (see
-// `-Xptxas -v`).  Design: one thread per column, as SLIM does (paper §2.4).  The
-// forward sweep forms S_l = D_l - L_l C_{l-1}, runs an unpivoted
-// Gauss-Jordan elimination on [U_l | b_l - L_l y_{l-1}] in registers (the
-// operators are diagonally dominant), keeps C_l, y_l in registers for the
-// next layer and stores C_l to a coalesced global scratch (nl, 6, 6, nt)
-// and y_l to the output.  The backward sweep reads C_l back.
+// Bound on the H100: memory.  The compulsory bytes are the blocks the
+// solve uses (D_l of every layer, L_l of every layer but the first, U_l
+// of every layer but the last; 36 values each) and the k right-hand sides
+// read once, and the k solutions written once, per layer and column; the
+// ~1.6 kflop per layer and column put it at ~1.5 flops/byte in float64,
+// far below the ridge.
+// Recurrence: S_l = D_l - L_l C_{l-1}; [C_l | y_l] = S_l^{-1} [U_l | b_l -
+// L_l y_{l-1}] by an unpivoted Gauss-Jordan elimination (the operators are
+// diagonally dominant); x_{nl-1} = y_{nl-1}, x_l = y_l - C_l x_{l+1}.
+// Design, to move only the compulsory bytes:
+//  - a block is a tile of TC consecutive columns with 6 * TC threads;
+//    thread (r, c) = threadIdx (r * TC + c) serves column c, and a warp's
+//    lanes take neighbouring columns, so every load (row r of L_l and D_l,
+//    column r of U_l, rhs[., l, r]) is coalesced; the loads and the stores
+//    of x stream (evict-first: each byte is touched once), and layer
+//    l + 1's loads are issued before layer l's elimination;
+//  - [C_l | y_l] of every layer stays in the tile's shared memory (ONCHIP),
+//    laid out [l][row][6 + k][TC] so that a warp's lanes hit neighbouring
+//    banks; nothing but x goes to device memory, and each x value is
+//    stored once.  Where the column is too deep for shared memory, the
+//    launch plan takes the same kernel with ONCHIP = false, which keeps
+//    [C_l | y_l] in a global scratch that the wrapper allocates, laid out
+//    the same way per tile, and exchanges rows in one shared slot;
+//  - layer l: thread (r, c) forms row r of S_l and of b_l - L_l y_{l-1}
+//    from [C_{l-1} | y_{l-1}] and publishes both, into layer l + 1's slot,
+//    which is not written yet (the last layer into its own, behind one
+//    more barrier); after one barrier every thread reads all of S_l and
+//    runs the elimination in registers on its own columns of the right-hand
+//    side: column r of U_l and, for r < k, column r of the y part.  Each
+//    thread so repeats the elimination of S_l (6 divisions, ~100 FMAs), but
+//    the elimination needs no barrier: a distributed one (each pivot row
+//    published by its owner, 6 barriers a layer) was held by that serial
+//    chain (PERF.md).  The order of operations on every value is the plain
+//    version's (T(1) / S[col][col], then multiplies);
+//  - the backward sweep is row-wise: thread (r, c) forms x_l[r] from row r
+//    of C_l and x_{l+1}, and writes it over y_l[r] for the layer below;
+//  - lo[0] and up[nl-1] are not read (they multiply a zero carry, or give
+//    a C_{nl-1} that the backward sweep never uses);
+//  - columns past nt take part in every barrier with the identity system
+//    (D = I, L = U = 0, b = 0), as the TPU kernel pads; only their loads
+//    and stores are masked.
+// The launch plan (tile width, variant, shared bytes, grid) is computed in
+// Python (kernels/column_solve.py: launch_plan) and checked by the launcher.
 // ---------------------------------------------------------------------------
 template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
+struct ThomasLoads {   // what thread (r, c) reads of one layer
+  T L[6], D[6];        // row r of L_l and D_l
+  T U[6];              // column r of U_l
+  T B[K];              // rhs[q, l, r]
+};
+
+template <typename T, int K, int TC, bool ONCHIP>
+__global__ void __launch_bounds__(6 * TC)
 block_thomas_kernel(const T* __restrict__ lo, const T* __restrict__ dg,
                     const T* __restrict__ up, const T* __restrict__ rhs,
-                    T* __restrict__ x, T* __restrict__ Cs,
-                    int64_t nl, int64_t nt) {
-  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (t >= nt) return;
-  const int64_t bs = 36 * nt;                  // layer stride of the blocks
+                    T* __restrict__ x, T* __restrict__ scratch, int nl,
+                    int64_t nt) {
+  constexpr int W = 6 + K;                     // a row of [C | y]
+  constexpr int kSlot = 6 * W * TC;            // one layer's [C | y]
+  extern __shared__ __align__(16) unsigned char thomas_smem[];
+  const int r = threadIdx.x / TC;
+  const int c = threadIdx.x % TC;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * TC + c;
+  const bool live = t < nt;
+  T* const sm = reinterpret_cast<T*>(thomas_smem) + c;
+  T* const store =
+      ONCHIP ? sm : scratch + static_cast<int64_t>(blockIdx.x) * nl * kSlot + c;
   const int64_t rs = 6 * nt;                   // layer stride of rhs / x
   const int64_t ks = nl * rs;                  // component stride of rhs / x
-  T C[6][6];
-  T y[6][K];
+
+  ThomasLoads<T, K> n;
+  auto load = [&](int l) {
+    const int64_t o = static_cast<int64_t>(l) * 36 * nt + t;
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
+    for (int m = 0; m < 6; ++m) {
+      n.L[m] = live && l > 0 ? __ldcs(lo + o + (r * 6 + m) * nt) : T(0);
+      n.D[m] = live ? __ldcs(dg + o + (r * 6 + m) * nt) : T(m == r ? 1 : 0);
+      n.U[m] = live && l < nl - 1 ? __ldcs(up + o + (m * 6 + r) * nt) : T(0);
+    }
 #pragma unroll
-    for (int j = 0; j < 6; ++j) C[i][j] = T(0);
+    for (int q = 0; q < K; ++q)
+      n.B[q] = live ? __ldcs(rhs + q * ks + l * rs + r * nt + t) : T(0);
+  };
+
+  load(0);
+  for (int l = 0; l < nl; ++l) {
+    T* const out = store + static_cast<int64_t>(l) * kSlot;
+    const bool ahead = l + 1 < nl;             // exchange in the next slot
+    T* const work = !ONCHIP ? sm : (ahead ? out + kSlot : out);
+    const T* const prev = store + static_cast<int64_t>(l > 0 ? l - 1 : 0) * kSlot;
+    // row r of S_l = D_l - L_l C_{l-1} and of b_l - L_l y_{l-1}
+    T acc[W];
 #pragma unroll
-    for (int c = 0; c < K; ++c) y[i][c] = T(0);
-  }
-  for (int64_t l = 0; l < nl; ++l) {
-    const T* L = lo + l * bs + t;
-    const T* D = dg + l * bs + t;
-    const T* U = up + l * bs + t;
-    T S[6][6];
-    T R[6][6 + K];
+    for (int w = 0; w < W; ++w) acc[w] = T(0);
+    if (l > 0) {
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      T Li[6];
+      for (int w = 0; w < W; ++w) {
 #pragma unroll
-      for (int m = 0; m < 6; ++m) Li[m] = L[(i * 6 + m) * nt];
-#pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        T acc = T(0);
-#pragma unroll
-        for (int m = 0; m < 6; ++m) acc += Li[m] * C[m][j];
-        S[i][j] = D[(i * 6 + j) * nt] - acc;
-        R[i][j] = U[(i * 6 + j) * nt];
-      }
-#pragma unroll
-      for (int c = 0; c < K; ++c) {
-        T acc = T(0);
-#pragma unroll
-        for (int m = 0; m < 6; ++m) acc += Li[m] * y[m][c];
-        R[i][6 + c] = rhs[c * ks + l * rs + i * nt + t] - acc;
+        for (int m = 0; m < 6; ++m) acc[w] += n.L[m] * prev[(m * W + w) * TC];
       }
     }
-    // unpivoted Gauss-Jordan: S -> I, R -> S^{-1} R
+#pragma unroll
+    for (int j = 0; j < 6; ++j) work[(r * W + j) * TC] = n.D[j] - acc[j];
+#pragma unroll
+    for (int q = 0; q < K; ++q) work[(r * W + 6 + q) * TC] = n.B[q] - acc[6 + q];
+    T Rc[6], Ry[6];                            // column r of U_l and of the y part
+#pragma unroll
+    for (int i = 0; i < 6; ++i) Rc[i] = n.U[i];
+    if (ahead) load(l + 1);                    // in flight during the elimination
+    __syncthreads();
+    T S[6][6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+      for (int j = 0; j < 6; ++j) S[i][j] = work[(i * W + j) * TC];
+      Ry[i] = r < K ? work[(i * W + 6 + r) * TC] : T(0);
+    }
+    if (ONCHIP && !ahead) __syncthreads();     // the slot is overwritten below
+    // unpivoted Gauss-Jordan: S -> I, [Rc | Ry] -> S^{-1} [Rc | Ry]; the
+    // entries left of the diagonal never reach C or y and are not updated
 #pragma unroll
     for (int col = 0; col < 6; ++col) {
       const T inv = T(1) / S[col][col];
 #pragma unroll
-      for (int j = 0; j < 6; ++j) S[col][j] *= inv;
+      for (int j = col + 1; j < 6; ++j) S[col][j] *= inv;
+      Rc[col] *= inv;
+      Ry[col] *= inv;
 #pragma unroll
-      for (int j = 0; j < 6 + K; ++j) R[col][j] *= inv;
+      for (int i = 0; i < 6; ++i) {
+        if (i == col) continue;
+        const T f = S[i][col];
 #pragma unroll
-      for (int r = 0; r < 6; ++r) {
-        if (r == col) continue;
-        const T f = S[r][col];
-#pragma unroll
-        for (int j = 0; j < 6; ++j) S[r][j] -= f * S[col][j];
-#pragma unroll
-        for (int j = 0; j < 6 + K; ++j) R[r][j] -= f * R[col][j];
+        for (int j = col + 1; j < 6; ++j) S[i][j] -= f * S[col][j];
+        Rc[i] -= f * Rc[col];
+        Ry[i] -= f * Ry[col];
       }
     }
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
-#pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        C[i][j] = R[i][j];
-        Cs[l * bs + (i * 6 + j) * nt + t] = R[i][j];
-      }
-#pragma unroll
-      for (int c = 0; c < K; ++c) {
-        y[i][c] = R[i][6 + c];
-        x[c * ks + l * rs + i * nt + t] = R[i][6 + c];
-      }
+      out[(i * W + r) * TC] = Rc[i];
+      if (r < K) out[(i * W + 6 + r) * TC] = Ry[i];
     }
+    __syncthreads();
   }
-  // backward sweep: x_{nl-1} = y_{nl-1} (already stored, still in y);
-  // x_l = y_l - C_l x_{l+1}
-  for (int64_t l = nl - 2; l >= 0; --l) {
-    const T* Cl = Cs + l * bs + t;
-    T xn[6][K];
+  // backward sweep: x_{nl-1} = y_{nl-1}; x_l = y_l - C_l x_{l+1}, with x_l
+  // written over y_l in the store for the layer below
+  T xr[K];
+  const T* const last = store + static_cast<int64_t>(nl - 1) * kSlot + r * W * TC;
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      T Ci[6];
+  for (int q = 0; q < K; ++q) {
+    xr[q] = last[(6 + q) * TC];
+    if (live) __stcs(x + q * ks + (nl - 1) * rs + r * nt + t, xr[q]);
+  }
+  for (int l = nl - 2; l >= 0; --l) {
+    const T* const above = store + static_cast<int64_t>(l + 1) * kSlot;
+    T* const row = store + static_cast<int64_t>(l) * kSlot + r * W * TC;
+    T xa[6][K];
 #pragma unroll
-      for (int m = 0; m < 6; ++m) Ci[m] = Cl[(i * 6 + m) * nt];
+    for (int m = 0; m < 6; ++m)
 #pragma unroll
-      for (int c = 0; c < K; ++c) {
-        T acc = T(0);
+      for (int q = 0; q < K; ++q) xa[m][q] = above[(m * W + 6 + q) * TC];
 #pragma unroll
-        for (int m = 0; m < 6; ++m) acc += Ci[m] * y[m][c];
-        xn[i][c] = x[c * ks + l * rs + i * nt + t] - acc;
-      }
+    for (int q = 0; q < K; ++q) {
+      T acc = T(0);
+#pragma unroll
+      for (int m = 0; m < 6; ++m) acc += row[m * TC] * xa[m][q];
+      xr[q] = row[(6 + q) * TC] - acc;
+    }
+    if (l > 0) {
+#pragma unroll
+      for (int q = 0; q < K; ++q) row[(6 + q) * TC] = xr[q];
     }
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
-#pragma unroll
-      for (int c = 0; c < K; ++c) {
-        y[i][c] = xn[i][c];
-        x[c * ks + l * rs + i * nt + t] = xn[i][c];
-      }
-    }
+    for (int q = 0; q < K; ++q)
+      if (live) __stcs(x + q * ks + l * rs + r * nt + t, xr[q]);
+    __syncthreads();
   }
 }
 
@@ -521,27 +585,105 @@ int launch_solve_w(const void* F, const void* area, const void* w_floor,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int K>
-int launch_block_thomas_k(const void* lo, const void* dg, const void* up,
-                          const void* rhs, void* x, void* Cs, int64_t nl,
-                          int64_t nt, void* stream) {
-  block_thomas_kernel<T, K><<<grid_for(nt), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+template <typename T>
+using ThomasKernel = void (*)(const T*, const T*, const T*, const T*, T*, T*,
+                              int, int64_t);
+
+// the widest tile built: launch_plan's PREFERRED_TC (kernels/column_solve.py)
+template <typename T>
+constexpr int kThomasWidest = sizeof(T) == 4 ? 32 : 16;
+
+// an instantiation, with its attributes set once per device: dynamic
+// shared memory up to the card's opt-in limit and, on chip, the largest
+// carveout, so that a launch does not call cudaFuncSetAttribute again
+template <typename T, int K, int TC, bool ONCHIP>
+cudaError_t thomas_ready(ThomasKernel<T>* kernel) {
+  static std::atomic<uint64_t> ready{0};  // a bit per device
+  *kernel = block_thomas_kernel<T, K, TC, ONCHIP>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
+  if (err != cudaSuccess || (ready.load(std::memory_order_acquire) & bit))
+    return err;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+  if (err == cudaSuccess && ONCHIP)
+    err = cudaFuncSetAttribute(*kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               static_cast<int>(cudaSharedmemCarveoutMaxShared));
+  if (err == cudaSuccess) ready.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// only the instantiations a launch plan can take: on chip every width up
+// to the widest, the global variant at the widest
+template <typename T, int K, int TC>
+cudaError_t thomas_tile(bool onchip, ThomasKernel<T>* kernel) {
+  if constexpr (TC > kThomasWidest<T>) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (onchip) return thomas_ready<T, K, TC, true>(kernel);
+    if constexpr (TC == kThomasWidest<T>) return thomas_ready<T, K, TC, false>(kernel);
+    return cudaErrorInvalidValue;
+  }
+}
+
+// the instantiation of a launch plan, ready to launch, or
+// cudaErrorInvalidValue where none was built
+template <typename T>
+cudaError_t thomas_kernel(int64_t k, int64_t tc, bool onchip, ThomasKernel<T>* kernel) {
+  switch (k * 100 + tc) {  // the step solves k = 2 (u, v and T, S); k = 4 is tested
+    case 232: return thomas_tile<T, 2, 32>(onchip, kernel);
+    case 216: return thomas_tile<T, 2, 16>(onchip, kernel);
+    case 208: return thomas_tile<T, 2, 8>(onchip, kernel);
+    case 432: return thomas_tile<T, 4, 32>(onchip, kernel);
+    case 416: return thomas_tile<T, 4, 16>(onchip, kernel);
+    case 408: return thomas_tile<T, 4, 8>(onchip, kernel);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K3 with the launch plan computed in Python: the launcher refuses a plan
+// it did not build (tile width, threads, shared bytes, grid, and a scratch
+// exactly for the global variant)
+template <typename T>
+int launch_block_thomas(const void* lo, const void* dg, const void* up,
+                        const void* rhs, void* x, void* scratch, int64_t k,
+                        int64_t nl, int64_t nt, int64_t onchip, int64_t tc,
+                        int64_t threads, int64_t smem, int64_t grid,
+                        void* stream) {
+  const int64_t rows = (onchip ? nl : 1) * 6 * (6 + k);
+  if (nl < 1 || nl > (int64_t(1) << 24) || nt < 1 ||
+      (onchip != 0 && onchip != 1) || threads != 6 * tc ||
+      smem != rows * tc * static_cast<int64_t>(sizeof(T)) ||
+      grid != (nt + tc - 1) / tc || grid >= (int64_t(1) << 31) ||
+      (onchip == 1) != (scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ThomasKernel<T> kernel = nullptr;
+  const cudaError_t err = thomas_kernel<T>(k, tc, onchip != 0, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(grid), static_cast<unsigned>(threads),
+           static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(lo), static_cast<const T*>(dg),
-      static_cast<const T*>(up), static_cast<const T*>(rhs),
-      static_cast<T*>(x), static_cast<T*>(Cs), nl, nt);
+      static_cast<const T*>(up), static_cast<const T*>(rhs), static_cast<T*>(x),
+      static_cast<T*>(scratch), static_cast<int>(nl), nt);
   return static_cast<int>(cudaGetLastError());
 }
 
+// tiles of a K3 launch plan that one SM holds at once
 template <typename T>
-int launch_block_thomas(const void* lo, const void* dg, const void* up,
-                        const void* rhs, void* x, void* Cs, int64_t k,
-                        int64_t nl, int64_t nt, void* stream) {
-  switch (k) {  // the step solves k = 2 (u, v and T, S); k = 4 is tested
-    case 2: return launch_block_thomas_k<T, 2>(lo, dg, up, rhs, x, Cs, nl, nt, stream);
-    case 4: return launch_block_thomas_k<T, 4>(lo, dg, up, rhs, x, Cs, nl, nt, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+int block_thomas_occupancy(int64_t k, int64_t onchip, int64_t tc, int64_t smem,
+                           int64_t* tiles) {
+  ThomasKernel<T> kernel = nullptr;
+  cudaError_t err = thomas_kernel<T>(k, tc, onchip != 0, &kernel);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, kernel, static_cast<int>(6 * tc), static_cast<size_t>(smem));
+  *tiles = n;
+  return static_cast<int>(err);
 }
 
 template <typename T>
@@ -639,9 +781,16 @@ const char* ocean_error_string(int err) {
     return launch_solve_w<T>(F, area, w_floor, out, K, nl, nt, stream);         \
   }                                                                             \
   int block_thomas_##SUFFIX(const void* lo, const void* dg, const void* up,     \
-                            const void* rhs, void* x, void* Cs, int64_t k,      \
-                            int64_t nl, int64_t nt, void* stream) {             \
-    return launch_block_thomas<T>(lo, dg, up, rhs, x, Cs, k, nl, nt, stream);   \
+                            const void* rhs, void* x, void* scratch, int64_t k, \
+                            int64_t nl, int64_t nt, int64_t onchip, int64_t tc, \
+                            int64_t threads, int64_t smem, int64_t grid,        \
+                            void* stream) {                                     \
+    return launch_block_thomas<T>(lo, dg, up, rhs, x, scratch, k, nl, nt,       \
+                                  onchip, tc, threads, smem, grid, stream);     \
+  }                                                                             \
+  int block_thomas_occupancy_##SUFFIX(int64_t k, int64_t onchip, int64_t tc,    \
+                                      int64_t smem, int64_t* tiles) {           \
+    return block_thomas_occupancy<T>(k, onchip, tc, smem, tiles);               \
   }                                                                             \
   int lateral_flux_##SUFFIX(const void* f, const void* fext, const void* speed, \
                             const void* edge_len, void* out,                    \

@@ -43,7 +43,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 _ARGTYPES = {
     "solve_r": [_P, _P, _P, _P, _I, _I, _I, _P],
     "solve_w": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "block_thomas": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # ..., k, nl, nt, then the launch plan: onchip, tc, threads,
+    # shared-memory bytes, grid (kernels/column_solve.py: launch_plan)
+    "block_thomas": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # k, onchip, tc, shared-memory bytes -> tiles one SM holds (no stream)
+    "block_thomas_occupancy": [_I, _I, _I, _I, _P],
     "lateral_flux": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # ..., then the launch plan: vec, per_thread, threads, grid
     # (kernels/cell_transpose.py: launch_plan)
@@ -177,15 +181,19 @@ def check(name: str, t: torch.Tensor, shape, like: torch.Tensor,
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def call(name: str, dtype: torch.dtype, *args) -> None:
+    """Call the C function ``name`` for ``dtype``; raise if it returned an
+    error."""
+    lib = library()
+    err = getattr(lib, f"{name}_{_SUFFIX[dtype]}")(*args)
+    if err != 0:
+        msg = lib.ocean_error_string(err).decode()
+        raise RuntimeError(f"CUDA function {name}_{_SUFFIX[dtype]} failed: "
+                           f"{msg} ({err})")
+
+
 def launch(kernel: str, dtype: torch.dtype, device: torch.device,
            *args) -> None:
     """Call the C launcher ``kernel`` for ``dtype`` on the current stream of
     ``device``; raise if the launch was refused."""
-    lib = library()
-    fn = getattr(lib, f"{kernel}_{_SUFFIX[dtype]}")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*args, stream)
-    if err != 0:
-        msg = lib.ocean_error_string(err).decode()
-        raise RuntimeError(f"CUDA kernel {kernel}_{_SUFFIX[dtype]} failed to "
-                           f"launch: {msg} ({err})")
+    call(kernel, dtype, *args, torch.cuda.current_stream(device).cuda_stream)

@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch port: each CUDA kernel (K1-K9) against its
-plain PyTorch version on the card (K5/K6 bitwise, through both variants
-and from data that is not 16-byte aligned; K8/K9 in float32 and bfloat16),
+plain PyTorch version on the card (K3 through both variants and every
+tile width its plan takes; K5/K6 bitwise, through both variants and from data that is not
+16-byte aligned; K8/K9 in float32 and bfloat16),
 the wrappers' input checks, a short step of the cuda backend
 against the plain backend, and the step boundary with its dispatch counts.
 
@@ -64,17 +65,63 @@ def test_matrix_free_kernels(cuda, dtype, nl):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("nl,k", [(1, 2), (3, 2), (3, 4)])
-def test_block_thomas_kernel(cuda, dtype, nl, k):
-    rng = np.random.default_rng(10 * nl + k)
-    nt = 200
+def _thomas_inputs(dev, dtype, nl, k, nt, seed):
+    rng = np.random.default_rng(seed)
     lo, dg, up = (0.1 * rng.normal(size=(nl, 6, 6, nt)) for _ in range(3))
     lo[0] = 0.0
     up[-1] = 0.0
     dg += 2.0 * np.eye(6)[None, :, :, None]
     rhs = rng.normal(size=(k, nl, 6, nt))
-    lo, dg, up, rhs = _on(cuda, dtype, lo, dg, up, rhs)
+    return _on(dev, dtype, lo, dg, up, rhs)
+
+
+def _first_global(k, dtype) -> int:
+    """The shallowest depth that the plan sends to the global variant."""
+    nl = 16
+    while column_solve.launch_plan(nl, k, 1, dtype)["variant"] == "onchip":
+        nl += 1
+    return nl
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", column_solve.RHS_WIDTHS)
+@pytest.mark.parametrize("nt", [200, 1007])
+@pytest.mark.parametrize("depth", [1, 3, 16, "deepest onchip", "first global"])
+def test_block_thomas_kernel(cuda, dtype, depth, nt, k):
+    """Through the plan's variant, at nt = 1,007 (a ragged last tile at
+    every tile width) and at the two depths where the variant changes."""
+    first = _first_global(k, dtype)
+    nl = {"deepest onchip": first - 1, "first global": first}.get(depth, depth)
+    lo, dg, up, rhs = _thomas_inputs(cuda, dtype, nl, k, nt, 10 * nl + k)
+    plan = column_solve.launch_plan(nl, k, nt, dtype)
+    assert plan["variant"] == ("global" if nl >= first else "onchip")
+    _close(column_solve.block_thomas(lo, dg, up, rhs),
+           column_solve.block_thomas_plain(lo, dg, up, rhs), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", column_solve.RHS_WIDTHS)
+def test_block_thomas_forced_global(cuda, dtype, k):
+    """nl = 16 through the global variant, forced by a small smem_limit."""
+    lo, dg, up, rhs = _thomas_inputs(cuda, dtype, 16, k, 1007, 7 + k)
+    assert column_solve.launch_plan(16, k, 1007, dtype, 20_000)["variant"] \
+        == "global"
+    _close(column_solve.block_thomas(lo, dg, up, rhs, smem_limit=20_000),
+           column_solve.block_thomas_plain(lo, dg, up, rhs), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k", column_solve.RHS_WIDTHS)
+@pytest.mark.parametrize("dtype,tc", [
+    (dt, tc) for dt in DTYPES for tc in column_solve.TILE_COLS
+    if tc <= column_solve.PREFERRED_TC[dt]])
+def test_block_thomas_every_width(cuda, dtype, tc, k):
+    """Every onchip tile width the plan takes, at the deepest column it
+    takes that width for."""
+    nl = max(n for n in range(1, _first_global(k, dtype))
+             if column_solve.launch_plan(n, k, 1007, dtype)["tc"] == tc)
+    lo, dg, up, rhs = _thomas_inputs(cuda, dtype, nl, k, 1007, tc + k)
     _close(column_solve.block_thomas(lo, dg, up, rhs),
            column_solve.block_thomas_plain(lo, dg, up, rhs), dtype)
     torch.cuda.synchronize()
