@@ -15,9 +15,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 in each K9 variant's SASS (`cuobjdump -sass`), the wgmma (HGMMA), TMA
                 load (UTMALDG), cp.async (LDGSTS) and FFMA instructions, and
                 in each K5/K6 variant's the global loads and stores (LDG,
-                STG) and those 128 bits wide, and fails unless every bf16
-                K9 variant has HGMMA and UTMALDG, every float32 one LDGSTS,
-                and every vector K5/K6 variant 128-bit loads and stores;
+                STG) and those 128 bits wide, in each K8 instantiation
+                (wkv6_<dtype>_k<K>_r<R>c<C>) the shuffles (SHFL), async
+                copies (LDGSTS, UTMALDG) and packed bf16 multiplies (HMUL2),
+                and fails unless every bf16 K9 variant has HGMMA and
+                UTMALDG, every float32 one LDGSTS, every vector K5/K6
+                variant 128-bit loads and stores, every K8 instantiation
+                SHFL and LDGSTS or UTMALDG (and HMUL2 in bf16), and no K8
+                instantiation spills;
   3. kernels  — each CUDA kernel (K1 solve_r, K2 solve_w, K3 block_thomas,
                 K4 lateral_flux, K5 soa_to_cell, K6 cell_to_soa, K7 tridiag)
                 against its plain PyTorch version at the main path's shapes,
@@ -68,7 +73,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 against scaled_dot_product_attention, a yardstick that the
                 port never calls); K9's lines add the SFU's exp floor (one
                 exp per unmasked pair) and its time before the redesign
-                for the tensor cores.
+                for the tensor cores; K8's add every launch plan the
+                launcher builds for the shape (wkv6.alternatives, forced
+                through plan=), each held against the plain version and
+                timed in two rounds with its blocks per SM and registers,
+                its time before the redesign (K8_BEFORE_MS) and the bound under the
+                unfactored count of 7 flops an element beside this one.
 
 The line before the last is the card's `nvidia-smi` name and power limit;
 the line before that is the JSON kernel table; the last line is
@@ -152,6 +162,9 @@ K9_BEFORE_MS = {("olmo-1b", "f32"): 22.5265, ("olmo-1b", "bf16"): 22.3221,
                 ("gemma2-9b-local", "bf16"): 20.3391,
                 ("hubert-xlarge", "f32"): 31.2539,
                 ("hubert-xlarge", "bf16"): 31.4286}
+# K8's times before its redesign (the kernel that held one column a thread;
+# NVIDIA H100 80GB HBM3 at 700 W, PERF.md's K8 row), printed beside this run's
+K8_BEFORE_MS = {("rwkv6-3b", "f32"): 4.2210, ("rwkv6-3b", "bf16"): 7.2299}
 SFU_EX2_PER_CLOCK = 16 * 132   # MUFU.EX2 results per clock: 16 per SM, 132 SMs
 RAGGED_NT = 159963    # a column count that is not a multiple of the cell
 OBS_DRIFT_MAX = 1e-10  # volume and T/S mass drift over the observed steps
@@ -185,12 +198,18 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 def kernel_variant(name: str):
     """'solve_r_f32', 'block_thomas_f64_k2_tc16_onchip',
-    'flash_attention_bf16_d128', 'soa_to_cell_f32_v4' from a mangled entry
-    name, or None (K3's kernels are block_thomas_kernel<T, K, TC, ONCHIP>,
+    'flash_attention_bf16_d128', 'soa_to_cell_f32_v4', 'wkv6_bf16_k64_r8c4'
+    from a mangled entry name, or None (K8's kernels are
+    wkv6_kernel<T, K, R, C>, K3's block_thomas_kernel<T, K, TC, ONCHIP>,
     K9's flash_bf16_kernel<D> and flash_f32_kernel<D>, K5/K6's
     soa_to_cell_kernel<T, VEC, N> and cell_to_soa_kernel<T, VEC, N>).  The
     kernel's identifier is found by its length prefix, since the
     (anonymous) namespace's mangled name before it may end in digits."""
+    wk = re.search(r"wkv6_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E",
+                   name)
+    if wk:     # K8: head dimension, rows and columns of S a thread holds
+        dt = "f32" if wk.group(1) == "f" else "bf16"
+        return f"wkv6_{dt}_k{wk.group(2)}_r{wk.group(3)}c{wk.group(4)}"
     fa = re.search(r"flash_(bf16|f32)_kernelILi(\d+)E", name)
     if fa:
         return f"flash_attention_{fa.group(1)}_d{fa.group(2)}"
@@ -248,6 +267,9 @@ SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "FFMA")
 # K5/K6: global loads and stores, and those 128 bits wide (`.128`)
 COPY_OPS = ("LDG", "STG", "LDG.128", "STG.128")
 COPY_KERNELS = ("soa_to_cell", "cell_to_soa")
+# K8: warp shuffles (the lanes' partial sums, sum r u k), cp.async (the
+# tiles), packed bfloat16 multiplies (k v rounded to bfloat16), FMAs
+WKV_OPS = ("SHFL", "LDGSTS", "UTMALDG", "HMUL2", "FFMA")
 
 
 def disassembler() -> str:
@@ -285,6 +307,8 @@ def sass_counts(so: Path) -> tuple:
                 cur, ops = var, SASS_OPS
             elif var.startswith(COPY_KERNELS):
                 cur, ops = var, COPY_OPS
+            elif var.startswith("wkv6"):
+                cur, ops = var, WKV_OPS
             if cur:
                 out[cur] = dict.fromkeys(ops, 0)
             continue
@@ -304,8 +328,19 @@ def sass_counts(so: Path) -> tuple:
 def check_sass(counts: dict) -> None:
     """Every bf16 K9 variant issues wgmma (HGMMA) and TMA loads (UTMALDG);
     every float32 one cp.async (LDGSTS); every vector K5/K6 variant
-    (float4, double2) 128-bit global loads and stores."""
+    (float4, double2) 128-bit global loads and stores; every K8
+    instantiation warp shuffles (SHFL) and async copies (LDGSTS or
+    UTMALDG: each plan with an access width of 4 bytes or more copies its
+    tiles by cp.async), and each bfloat16 one the packed multiply (HMUL2)
+    that rounds k v."""
     from repro_torch.kernels.flash_attention import HEAD_DIMS
+    for var in wkv6_instantiations():
+        c = counts.get(var, {})
+        if not c.get("SHFL") or not (c.get("LDGSTS") or c.get("UTMALDG")):
+            raise AssertionError(f"{var}: no SHFL or no LDGSTS / UTMALDG in "
+                                 f"its SASS ({c})")
+        if "bf16" in var and not c.get("HMUL2"):
+            raise AssertionError(f"{var}: no HMUL2 in its SASS ({c})")
     for kernel in COPY_KERNELS:
         for var in (f"{kernel}_f32_v4", f"{kernel}_f64_v2"):
             c = counts.get(var, {})
@@ -321,6 +356,23 @@ def check_sass(counts: dict) -> None:
         if not f32.get("LDGSTS"):
             raise AssertionError(f"flash_attention_f32_d{d}: no LDGSTS in "
                                  f"its SASS ({f32})")
+
+
+def wkv6_instantiations() -> list:
+    """Every K8 instantiation the launcher builds: 'wkv6_<dt>_k<K>_r<R>c<C>'."""
+    from repro_torch.kernels import wkv6
+    return [f"wkv6_{dt}_k{K}_r{r}c{c}" for dt in ("f32", "bf16")
+            for K in wkv6.HEAD_DIMS for r, c in wkv6.VARIANTS.values()]
+
+
+def check_wkv6_ptxas(ptxas: dict) -> None:
+    """Every K8 instantiation is in the ptxas report and spills nothing."""
+    for var in wkv6_instantiations():
+        info = ptxas.get(var)
+        if not info or "registers" not in info:
+            raise AssertionError(f"{var}: not in the ptxas report")
+        if info.get("spill_stores", 0) or info.get("spill_loads", 0):
+            raise AssertionError(f"{var} spills: {info}")
 
 
 # ---------------------------------------------------------------------------
@@ -1035,11 +1087,19 @@ def attention_pairs(T: int, causal: bool, window) -> int:
 
 
 def model_flops(case: dict) -> int:
-    """7 K V flops per token and head (K8); 4 d per unmasked pair (K9)."""
+    """K8: per token and head, 5 K V flops (k v, then two FMAs an element
+    of S: r S into the output, w S + kv), 3 K for sum_i r u k and 2 V for
+    adding its product with v; K9: 4 d per unmasked pair."""
     BH, T, d = case["B"] * case["H"], case["T"], case["d"]
     if case["op"] == "wkv6":
-        return 7 * d * d * T * BH
+        return (5 * d * d + 3 * d + 2 * d) * T * BH
     return 4 * d * BH * attention_pairs(T, case["causal"], case.get("window"))
+
+
+def wkv6_flops_unfactored(case: dict) -> int:
+    """7 K V flops per token and head: the count of K8's bound before its
+    redesign, which added u k v to S for every element."""
+    return 7 * case["d"] * case["d"] * case["T"] * case["B"] * case["H"]
 
 
 def model_held(out, ref, dtype) -> tuple:
@@ -1072,7 +1132,7 @@ def phase_model(ptxas: dict) -> dict:
             kname, kern, plain, library = ("wkv6", wkv6.wkv6, wkv6.wkv6_plain,
                                            None)
             entry = ops.wkv6
-            var = f"wkv6_{{}}_k{case['d']}"
+            var = None          # the plan's instantiation, below
         else:
             opts = dict(causal=case["causal"], window=case.get("window"),
                         softcap=case.get("softcap"))
@@ -1120,6 +1180,34 @@ def phase_model(ptxas: dict) -> dict:
                 raise AssertionError(f"{cname} {dtype}: max_abs_err {err:.3e}, "
                                      f"{share:.3f} of its limit (max|plain| "
                                      f"{ref_max:.3e})")
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            alts = {}
+            if kname == "wkv6":
+                # every plan the launcher builds for this shape: each
+                # held against the plain version, then timed; the first is
+                # the plan's own choice
+                BH, T, d = ins[0].shape
+                plans = wkv6.alternatives(BH, T, d, ins[2].shape[-1], dtype)
+                if dict(plans[0]) != dict(wkv6.launch_plan(BH, T, d, d, dtype)):
+                    raise AssertionError("alternatives()[0] is not the plan")
+                for p in plans:
+                    a_out = wkv6.wkv6(*ins, plan=p)
+                    a_err, a_share = model_held(a_out, ref, dtype)
+                    if not a_share <= 1.0:
+                        raise AssertionError(f"{cname} {dt} plan {dict(p)}: "
+                                             f"max_abs_err {a_err:.3e}, "
+                                             f"{a_share:.3f} of its limit")
+                    del a_out
+                    alts[p["variant"]] = dict(
+                        plan=dict(p), max_abs_err=a_err,
+                        blocks_per_sm=wkv6.blocks_per_sm(p, d, dtype),
+                        ptxas=ptxas.get(f"wkv6_{dt}_k{d}_r{p['rows']}"
+                                        f"c{p['cols']}", {}))
+                for rnd in (1, 2):      # two rounds, alternatives in turn
+                    for p in plans:
+                        alts[p["variant"]][f"ms_{rnd}"] = time_ms(
+                            lambda: wkv6.wkv6(*ins, plan=p), reps=20)
+                var = f"wkv6_{{}}_k{d}_r{plans[0]['rows']}c{plans[0]['cols']}"
             del ref
             ms = time_ms(lambda: kern(*ins), reps=20)
             plain_ms = time_ms(lambda: plain(*ins), reps=3, warmup=1)
@@ -1139,7 +1227,6 @@ def phase_model(ptxas: dict) -> dict:
             t_bytes = moved / HBM_BYTES_PER_S * 1e3
             t_ops = flops / peak * 1e3
             bound = max(t_bytes, t_ops)
-            dt = "f32" if dtype == torch.float32 else "bf16"
             regs = ptxas.get(var.format(dt), {})
             lib_txt = ("" if library_ms is None else
                        f" library_ms={library_ms:.4f} (vs kernel {lib_err:.3e}, "
@@ -1153,6 +1240,23 @@ def phase_model(ptxas: dict) -> dict:
                 lib_txt += (f" sfu_exp_floor_ms={sfu_ms:.4f} (at {clock:.0f} MHz)"
                             f" before_ms={before:.4f} (FP32-pipe kernel; "
                             f"{before / ms:.2f}x)")
+            bound7 = None
+            if kname == "wkv6":
+                before = K8_BEFORE_MS[(cname, dt)]
+                bound7 = max(t_bytes, wkv6_flops_unfactored(case)
+                             / peak * 1e3)
+                lib_txt += (f" before_ms={before:.4f} (column-a-thread kernel; "
+                            f"{before / ms:.2f}x; share of this bound "
+                            f"{bound / before:.4f}) bound_ms_7flop="
+                            f"{bound7:.4f} (share {bound7 / ms:.4f})")
+                for name, a in alts.items():
+                    log(f"model wkv6 {cname} {dt} plan {name}: "
+                        f"ms={a['ms_1']:.4f} / {a['ms_2']:.4f} "
+                        f"(share {bound / a['ms_1']:.4f} / "
+                        f"{bound / a['ms_2']:.4f}) max_abs_err="
+                        f"{a['max_abs_err']:.3e} blocks_per_sm="
+                        f"{a['blocks_per_sm']} ptxas {a['ptxas']} "
+                        f"plan {a['plan']}")
             log(f"model {kname} {cname} {dt}: shape={tuple(ins[0].shape)} "
                 f"max_abs_err={err:.3e} (max|plain| {ref_max:.3e}; "
                 f"{share:.3f} of the limit, tol {TOL[dtype]:.0e} "
@@ -1167,7 +1271,14 @@ def phase_model(ptxas: dict) -> dict:
                 library_ms=library_ms, bound_ms=bound, sfu_floor_ms=sfu_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=moved, flops=flops, shape=list(ins[0].shape),
-                ptxas=regs)
+                ptxas=regs, bound_ms_7flop=bound7,
+                before_ms=(K8_BEFORE_MS.get((cname, dt)) if kname == "wkv6"
+                           else K9_BEFORE_MS.get((cname, dt))),
+                alternatives={n: {k: a[k] for k in ("ms_1", "ms_2",
+                                                    "max_abs_err", "ptxas",
+                                                    "blocks_per_sm")}
+                              for n, a in alts.items()},
+                plan=alts[next(iter(alts))]["plan"] if alts else None)
             del ins, out
             torch.cuda.empty_cache()
     log(f"model kernels: launches on the path {sorted(path.items())}")
@@ -1184,7 +1295,8 @@ def model_rows(model: dict) -> list:
         cases = {c: {dt: {k: model["results"][(c, dt)][k] for k in
                           ("ms", "bound_ms", "bound_by", "plain_ms",
                            "library_ms", "max_abs_err", "limit_share",
-                           "shape")}
+                           "shape", "before_ms", "bound_ms_7flop",
+                           "alternatives", "plan", "ptxas")}
                       for dt in ("f32", "bf16")}
                  for c, case in MODEL_CASES.items()
                  if (case["op"] == "wkv6") == (name == "wkv6")}
@@ -1227,6 +1339,7 @@ def main() -> int:
     for line in sorted({ln.strip() for ln in report.splitlines()
                         if "wgmma" in ln.lower() or "setmaxnreg" in ln}):
         log(f"ptxas note: {line}")
+    check_wkv6_ptxas(ptxas)
     sass, tool = sass_counts(so)
     for variant, counts in sorted(sass.items()):
         log(f"sass {variant} ({tool}): {counts}")

@@ -54,7 +54,12 @@ _ARGTYPES = {
     "soa_to_cell": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cell_to_soa": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "tridiag": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "wkv6": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # r, k, v, w, u, out, BH, T, K, V, u's rows H, then the launch plan:
+    # rows, cols, block_cols, threads, tile, stages, shared-memory bytes,
+    # access bytes, grid (kernels/wkv6.py: launch_plan, LAUNCH_KEYS)
+    "wkv6": [_P] * 6 + [_I] * 14 + [_P],
+    # K, rows, cols, threads, shared-memory bytes -> blocks one SM holds
+    "wkv6_occupancy": [_I, _I, _I, _I, _I, _P],
     # ..., then the launch plan: block_q, block_k, chunk, stages, threads,
     # shared-memory bytes, the grid's query tiles
     # (kernels/flash_attention.py: launch_plan, grid)
@@ -65,7 +70,7 @@ _ARGTYPES = {
 OCEAN_DTYPES = (torch.float32, torch.float64)
 MODEL_DTYPES = (torch.float32, torch.bfloat16)
 # the dtypes each launcher is built for
-DTYPES = {name: MODEL_DTYPES if name in ("wkv6", "flash_attention")
+DTYPES = {name: MODEL_DTYPES if name.startswith(("wkv6", "flash_attention"))
           else OCEAN_DTYPES for name in _ARGTYPES}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 

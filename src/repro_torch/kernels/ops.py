@@ -229,7 +229,7 @@ def cell_to_soa(x, nt, backend: dispatch.BackendLike = None):
 # model kernels (the JAX package's `ops.py:219-240`)
 # ---------------------------------------------------------------------------
 def wkv6(r, k, v, w, u, backend: dispatch.BackendLike = None):
-    """RWKV6 recurrence: r, k, w (BH, T, K); v (BH, T, V); u (K,)."""
+    """RWKV6 recurrence: r, k, w (BH, T, K); v (BH, T, V); u (K,) or (H, K)."""
     bk = dispatch.resolve_model(backend, r.device)
     with _dispatch("wkv6", bk):
         if bk is Backend.REF:

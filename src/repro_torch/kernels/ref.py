@@ -76,14 +76,16 @@ NEG_INF = -1e30
 
 def wkv6(r, k, v, w, u):
     """RWKV6 recurrence as a scan over time, all heads at once: r, k, w
-    (BH, T, K), v (BH, T, V), u (K,).  S is float32; like the JAX form, the
-    result is float32 whatever the inputs' dtype."""
+    (BH, T, K), v (BH, T, V), u (K,) or (H, K), head bh taking row bh % H
+    (as JAX `models/rwkv.py::_wkv_with_state` repeats it).  S is float32;
+    like the JAX form, the result is float32 whatever the inputs' dtype."""
     BH, T, K = r.shape
     S = torch.zeros((BH, K, v.shape[-1]), dtype=torch.float32, device=r.device)
+    uu = u[:, None] if u.dim() == 1 else u.repeat(BH // u.shape[0], 1)[:, :, None]
     out = []
     for t in range(T):
         kv = k[:, t, :, None] * v[:, t, None, :]
-        out.append((r[:, t, :, None] * (S + u[:, None] * kv)).sum(dim=1))
+        out.append((r[:, t, :, None] * (S + uu * kv)).sum(dim=1))
         S = w[:, t, :, None] * S + kv
     return torch.stack(out, dim=1)
 

@@ -3,20 +3,38 @@
 Per head, with a float32 state S in R^{K x V} that starts at zero:
 
     out_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
+          = r_t^T S_{t-1} + (sum_i r_ti u_i k_ti) v_t
     S_t   = diag(w_t) S_{t-1} + k_t v_t^T
 
-Shapes: r, k, w (BH, T, K); v (BH, T, V); u (K,), shared by every head;
-the result is (BH, T, V) in v's dtype.  The kernel (`csrc/model_kernels.cu`:
-wkv6_kernel) runs one block per head and 64 value columns, one thread per
-column holding S[:, v] in registers, and stages tiles of time steps of r, k,
-w and v in shared memory.  It takes K in {16, 32, 64}, any V and any T (the
-TPU version needs T % 128 == 0), in float32 and bfloat16.
+Shapes: r, k, w (BH, T, K); v (BH, T, V); u (K,), shared by every head, or
+(H, K), one row a head, head bh taking row bh % H (BH a multiple of H, as
+JAX `models/rwkv.py::_wkv_with_state` repeats it); the result is (BH, T, V)
+in v's dtype.
+
+The kernel (`csrc/model_kernels.cu`: wkv6_kernel<T, K, R, C>) holds R rows
+by C columns of S a thread, in registers; a column's K rows are split over
+L = K / R lanes, whose partial output sums are reduced with warp shuffles.
+float32 computes the second, factored form: each lane adds (sum over its
+rows of r u k) v_t to its partial sums.  bfloat16 keeps the TPU kernel's
+rounding of u k v^T to bfloat16, element by element: where the bonus
+dominates a row and cancels, the factored sum differs from it by more than
+the bfloat16 tolerance.  A block holds `block_cols` columns of one head
+and walks time in tiles of TILE steps that cp.async brings to shared memory
+a tile ahead.  `launch_plan` picks all of that before the launch, and the C
+launcher refuses any plan it did not build.  K in {16, 32, 64}, any V and
+any T (the TPU version needs T % 128 == 0), float32 and bfloat16.
 
 `wkv6` launches the kernel and takes only CUDA tensors; `wkv6_plain` is the
 plain PyTorch version, the Pallas body step by step, used on CPU tensors and
-to check the kernel.
+to check the kernel; `wkv6_partitioned` is the plain version in the
+kernel's own order (per-lane partial sums, the shuffle tree, the bonus as
+the kernel adds it), which holds the plan's partition on the CPU.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+import types
 
 import torch
 
@@ -24,17 +42,161 @@ from . import cuda_lib
 from .dispatch import LAUNCHES
 
 HEAD_DIMS = (16, 32, 64)      # the K the kernel is built for
+# the kernel's instantiations: (rows, columns) of S a thread holds; R <= 8,
+# so a column's rows split over two or more lanes at every K built
+VARIANTS = {"r8c4": (8, 4), "r4c8": (4, 8), "r8c8": (8, 8)}
+DEFAULT_VARIANT = "r8c4"
+TILE = 32                     # time steps a tile (kWkvTile)
+STAGES = 2                    # tiles in shared memory (kWkvStages)
+MAX_THREADS = 256             # the kernel's __launch_bounds__
+MAX_WARPS = MAX_THREADS // 32
+MAX_SMEM = 232_448            # shared memory a block can opt in to (H100)
+SMS = 132                     # streaming multiprocessors of an H100 SXM
+MAX_GRID = 2 ** 31 - 1
+CLOSE = 0.8                   # widths scoring within this of the best tie
+
+
+def smem_bytes(K: int, block_cols: int, itemsize: int) -> int:
+    """Shared bytes of a block (`wkv_smem_bytes` in the CUDA source): the
+    tiles of both stages in the inputs' dtype."""
+    return STAGES * TILE * (3 * K + block_cols) * itemsize
+
+
+def alignment(*ptrs: int) -> int:
+    """The largest power of two up to 16 that divides every address."""
+    a = 16
+    for p in ptrs:
+        while p % a:
+            a //= 2
+    return a
+
+
+def _access_bytes(V: int, itemsize: int, align: int) -> int:
+    """The widest copy (16, 8, 4 bytes, or 2 for bfloat16 element by
+    element) that every pointer's alignment and a v row's length allow."""
+    for b in (16, 8, 4, 2):
+        if b >= itemsize and b <= align and (V * itemsize) % b == 0:
+            return b
+    raise ValueError(f"wkv6: no access width for V={V}, itemsize {itemsize}, "
+                     f"pointers aligned to {align} bytes")
+
+
+def _balance(blocks: int) -> tuple:
+    """(blocks on the busiest SM, mean over max) when ``blocks`` equal
+    blocks spread over SMS SMs."""
+    busiest = -(-blocks // SMS)
+    return busiest, blocks / (SMS * busiest)
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(BH: int, T: int, K: int, V: int, dtype: torch.dtype,
+                align: int = 16, variant: str = DEFAULT_VARIANT
+                ) -> types.MappingProxyType:
+    """K8's launch for BH heads of T steps, K rows and V columns: the
+    variant's thread tile (rows x cols of S, lanes a column), the columns a
+    block holds, threads, time tile, stages, shared bytes, access width
+    (from V and ``align``, the pointers' common alignment) and grid.  Read
+    only (plans are cached).
+
+    The block width is a whole number of warps (a warp holds 32 cols / lanes
+    columns), at most MAX_WARPS of them and MAX_SMEM shared bytes, and no
+    wider than V needs.  Of those, the plan scores each width by the share
+    of the card's SM-slots that its blocks fill evenly (`balance`: the mean
+    blocks a SM over the busiest SM's, assuming equal blocks spread over
+    SMS SMs) times the share of its columns that are live, and takes the
+    widest within CLOSE of the best score: a wider block copies each head's
+    r, k and w fewer times.  At rwkv6-3b one block a head (balance 0.81)
+    ran 3 % faster than two (0.97) on an H100 (PERF.md, K8), so CLOSE
+    is 0.8."""
+    if dtype not in cuda_lib.MODEL_DTYPES:
+        raise TypeError(f"wkv6: {dtype} is not built (float32 or bfloat16)")
+    if K not in HEAD_DIMS:
+        raise ValueError(f"wkv6: K={K} is not built (K in {HEAD_DIMS})")
+    if variant not in VARIANTS:
+        raise ValueError(f"wkv6: variant {variant!r} is not built "
+                         f"({sorted(VARIANTS)})")
+    if BH < 1 or T < 1 or V < 1:
+        raise ValueError(f"wkv6: empty input (BH={BH}, T={T}, V={V})")
+    itemsize = dtype.itemsize
+    rows, cols = VARIANTS[variant]
+    lanes = K // rows
+    warp_cols = 32 // lanes * cols
+    best = []
+    for nw in range(1, MAX_WARPS + 1):
+        block_cols = nw * warp_cols
+        if block_cols >= V + warp_cols:        # wider than V needs
+            break
+        smem = smem_bytes(K, block_cols, itemsize)
+        if smem > MAX_SMEM:
+            break
+        nvb = -(-V // block_cols)
+        busiest, balance = _balance(BH * nvb)
+        best.append((balance * V / (nvb * block_cols), block_cols, nvb,
+                     busiest, balance, smem))
+    top = max(b[0] for b in best)
+    score, block_cols, nvb, busiest, balance, smem = [
+        b for b in best if b[0] >= CLOSE * top][-1]
+    grid = BH * nvb
+    if grid > MAX_GRID:
+        raise ValueError(f"wkv6: {grid} blocks are more than a grid holds")
+    return types.MappingProxyType(dict(
+        variant=variant, rows=rows, cols=cols, lanes=lanes,
+        warp_cols=warp_cols, block_cols=block_cols,
+        threads=block_cols // cols * lanes, tile=TILE, stages=STAGES,
+        smem=smem, bytes=_access_bytes(V, itemsize, align), grid=grid,
+        busiest=busiest, balance=balance))
+
+
+def alternatives(BH: int, T: int, K: int, V: int, dtype: torch.dtype,
+                 align: int = 16) -> list:
+    """Every plan the launcher builds for this shape: one a variant, the
+    default first."""
+    names = [DEFAULT_VARIANT] + [n for n in VARIANTS if n != DEFAULT_VARIANT]
+    return [launch_plan(BH, T, K, V, dtype, align, n) for n in names]
+
+
+def lane_rows(K: int, rows: int) -> list:
+    """The rows of S lane g of a column group holds, for each g: 4 L q + 4 g
+    + e for q < rows / 4, e < 4, in the order the lane sums them."""
+    lanes = K // rows
+    return [[4 * lanes * q + 4 * g + e for q in range(rows // 4)
+             for e in range(4)] for g in range(lanes)]
+
+
+def thread_columns(plan, tid: int) -> list:
+    """The columns, within its block, that thread ``tid`` holds."""
+    lanes, cols = plan["lanes"], plan["cols"]
+    lane, warp = tid % 32, tid // 32
+    c0 = (warp * (32 // lanes) + lane // lanes) * cols
+    return list(range(c0, c0 + cols))
+
+
+def _bonus_rows(u: torch.Tensor, BH: int) -> torch.Tensor:
+    """u (K,) or (H, K) -> (BH, K): head bh takes row bh % H."""
+    if u.dim() == 1:
+        return u[None].expand(BH, -1)
+    return u.repeat(BH // u.shape[0], 1)
+
+
+def _check_u(u: torch.Tensor, BH: int, K: int) -> None:
+    ok = u.dim() == 1 and u.shape[0] == K or (
+        u.dim() == 2 and u.shape[1] == K and 1 <= u.shape[0]
+        and BH % u.shape[0] == 0)
+    if not ok:
+        raise ValueError(f"wkv6: u must be (K,) = ({K},) or (H, {K}) with H "
+                         f"dividing BH = {BH}, got {tuple(u.shape)}")
 
 
 def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """The Pallas kernel's body (`repro/kernels/wkv6.py:40-61`), all heads at
-    once: S in float32, kv = k_t v_t^T in the inputs' dtype, each output row
-    cast to v's dtype."""
+    once: S in float32, kv = k_t v_t^T and u kv in the inputs' dtype, each
+    output row cast to v's dtype.  u is (K,) or (H, K)."""
     BH, T, K = r.shape
+    _check_u(u, BH, K)
     S = torch.zeros((BH, K, v.shape[-1]), dtype=torch.float32, device=r.device)
     out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    uu = u[None, :, None]
+    uu = _bonus_rows(u, BH)[:, :, None]
     for t in range(T):
         kv = k[:, t, :, None] * v[:, t, None, :]
         out[:, t] = (r[:, t, :, None] * (S + uu * kv)).sum(dim=1).to(v.dtype)
@@ -42,10 +204,66 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def wkv6_partitioned(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor, plan) -> torch.Tensor:
+    """The plain version in the kernel's order under ``plan``: each lane's
+    partial output over its rows (`lane_rows`), the partials summed over
+    the lanes' bits from the lowest, as the shuffles pair them; kv in the
+    inputs' dtype, S and every sum in float32.  float32 factors the bonus:
+    each lane adds (sum over its rows of r u k) v to its partial; bfloat16
+    keeps the TPU kernel's rounding of u kv element by element."""
+    BH, T, K = r.shape
+    _check_u(u, BH, K)
+    V = v.shape[-1]
+    lanes = plan["lanes"]
+    rows = lane_rows(K, plan["rows"])
+    exact = v.dtype == torch.bfloat16
+    uu = _bonus_rows(u, BH)
+    S = torch.zeros((BH, K, V), dtype=torch.float32, device=r.device)
+    out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    for t in range(T):
+        rt, kt, wt = r[:, t].float(), k[:, t].float(), w[:, t].float()
+        vt = v[:, t].float()
+        kv = k[:, t, :, None] * v[:, t, None, :]
+        ukv = (uu[:, :, None] * kv).float()
+        part = []
+        for g in range(lanes):
+            if exact:
+                o = torch.zeros_like(vt)
+                for i in rows[g]:
+                    o = o + rt[:, i, None] * (S[:, i] + ukv[:, i])
+            else:
+                a = torch.zeros_like(rt[:, 0])
+                o = torch.zeros_like(vt)
+                for i in rows[g]:
+                    a = a + rt[:, i] * (uu[:, i].float() * kt[:, i])
+                    o = o + rt[:, i, None] * S[:, i]
+                o = o + a[:, None] * vt
+            part.append(o)
+        off = 1
+        while off < lanes:
+            part = [part[g] + part[g ^ off] for g in range(lanes)]
+            off *= 2
+        out[:, t] = part[0].to(v.dtype)
+        S = wt[:, :, None] * S + kv.float()
+    return out
+
+
+def blocks_per_sm(plan, K: int, dtype: torch.dtype) -> int:
+    """Blocks of ``plan`` that one SM of the current card holds at once, by
+    the CUDA occupancy calculator."""
+    blocks = ctypes.c_int64()
+    cuda_lib.call("wkv6_occupancy", dtype, K, plan["rows"], plan["cols"],
+                  plan["threads"], plan["smem"], ctypes.byref(blocks))
+    return blocks.value
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-         u: torch.Tensor) -> torch.Tensor:
+         u: torch.Tensor, plan=None) -> torch.Tensor:
     """K8 on the card: the RWKV6 recurrence of (BH, T, K) r, k, w and
-    (BH, T, V) v with the bonus u (K,)."""
+    (BH, T, V) v with the bonus u, (K,) or (H, K).  ``plan`` overrides
+    `launch_plan`'s choice (a plan of `alternatives`, for timing them); the
+    launcher refuses a plan it did not build."""
     if r.dim() != 3 or v.dim() != 3:
         raise ValueError(f"wkv6: expected r (BH, T, K) and v (BH, T, V), got "
                          f"{tuple(r.shape)} and {tuple(v.shape)}")
@@ -55,14 +273,25 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     for name, t in (("r", r), ("k", k), ("w", w)):
         cuda_lib.check(name, t, (BH, T, K), v, dtypes)
     cuda_lib.check("v", v, (BH, T, V), v, dtypes)
-    cuda_lib.check("u", u, (K,), v, dtypes)
+    _check_u(u, BH, K)
+    cuda_lib.check("u", u, tuple(u.shape), v, dtypes)
     if K not in HEAD_DIMS:
         raise ValueError(f"wkv6: K={K} is not built (K in {HEAD_DIMS})")
     if BH < 1 or T < 1 or V < 1:
         raise ValueError(f"wkv6: empty input (BH={BH}, T={T}, V={V})")
+    if plan is None:
+        align = alignment(*(t.data_ptr() for t in (r, k, v, w)))
+        plan = launch_plan(BH, T, K, V, v.dtype, align)
+    H = u.shape[0] if u.dim() == 2 else 1
     out = torch.empty_like(v)
     cuda_lib.launch("wkv6", v.dtype, v.device, r.data_ptr(), k.data_ptr(),
                     v.data_ptr(), w.data_ptr(), u.data_ptr(), out.data_ptr(),
-                    BH, T, K, V)
+                    BH, T, K, V, H,
+                    *(plan[key] for key in LAUNCH_KEYS))
     LAUNCHES[("wkv6", "cuda")] += 1
     return out
+
+
+# the plan's entries the C launcher takes, in its order
+LAUNCH_KEYS = ("rows", "cols", "block_cols", "threads", "tile", "stages",
+               "smem", "bytes", "grid")

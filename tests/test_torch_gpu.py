@@ -345,17 +345,78 @@ def _model_close(out, ref, dtype):
                                         float((err - limit).max()))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bh,t,kd,vd", [(1, 128, 16, 16), (3, 200, 32, 48),
-                                        (2, 256, 64, 64), (2, 77, 64, 130)])
-def test_wkv6_kernel(cuda, dtype, bh, t, kd, vd):
-    rng = np.random.default_rng(bh * t + kd + vd)
+def _wkv6_args(dev, dtype, bh, t, kd, vd, seed, heads=None):
+    """r, k, v, w, u on the card; u is (kd,), or (heads, kd) per head."""
+    rng = np.random.default_rng(seed)
     n = lambda *s: 0.5 * rng.normal(size=s)
     w = np.exp(-np.exp(rng.normal(size=(bh, t, kd)) * 0.5 - 1.0))
-    args = _on(cuda, dtype, n(bh, t, kd), n(bh, t, kd), n(bh, t, vd), w, n(kd))
+    u = n(kd) if heads is None else n(heads, kd)
+    return _on(dev, dtype, n(bh, t, kd), n(bh, t, kd), n(bh, t, vd), w, u)
+
+
+# K = 16 and V not a multiple of the block's columns (130, 48), T not a
+# multiple of the time tile (77, 200), BH = 1, V = 77 (bfloat16 rows only
+# 2-byte aligned: copied element by element), T = V = 1
+WKV_SHAPES = [(1, 128, 16, 16), (3, 200, 32, 48), (2, 256, 64, 64),
+              (2, 77, 64, 130), (1, 77, 16, 130), (3, 200, 64, 48),
+              (1, 33, 32, 77), (1, 1, 64, 1), (4, 50, 16, 200)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,t,kd,vd", WKV_SHAPES)
+def test_wkv6_kernel(cuda, dtype, bh, t, kd, vd):
+    args = _wkv6_args(cuda, dtype, bh, t, kd, vd, bh * t + kd + vd)
     ops.reset_launches()
     out = ops.wkv6(*args)
     assert dict(ops.LAUNCHES) == {("wkv6", "cuda"): 1}
+    _model_close(out, wkv6.wkv6_plain(*args), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,heads,kd", [(6, 3, 64), (4, 4, 16), (2, 1, 32)])
+def test_wkv6_per_head_u(cuda, dtype, bh, heads, kd):
+    """u (H, K): head bh takes row bh % H, in the kernel as in plain."""
+    args = _wkv6_args(cuda, dtype, bh, 70, kd, 40, 11 * bh + heads, heads)
+    ops.reset_launches()
+    out = ops.wkv6(*args)
+    assert dict(ops.LAUNCHES) == {("wkv6", "cuda"): 1}
+    _model_close(out, wkv6.wkv6_plain(*args), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kd", wkv6.HEAD_DIMS)
+@pytest.mark.parametrize("bh,vd", [(3, 130), (320, 64)])
+def test_wkv6_every_plan(cuda, dtype, kd, bh, vd):
+    """Every plan the launcher builds, forced through plan=."""
+    args = _wkv6_args(cuda, dtype, bh, 40, kd, vd, kd + bh + vd)
+    ref = wkv6.wkv6_plain(*args)
+    plans = wkv6.alternatives(bh, 40, kd, vd, dtype)
+    assert {p["variant"] for p in plans} == set(wkv6.VARIANTS)
+    for plan in plans:
+        _model_close(wkv6.wkv6(*args, plan=plan), ref, dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vd", [64, 130])
+def test_wkv6_unaligned_pointers(cuda, dtype, vd):
+    """Inputs one element past a 16-byte boundary: the plan narrows its
+    access width to what the pointers allow (4 bytes in float32, 2 in
+    bfloat16) and the result is the same."""
+    args = _wkv6_args(cuda, dtype, 2, 45, 64, vd, vd)
+    shifted = []
+    for a in args[:4]:
+        buf = torch.empty(a.numel() + 1, dtype=dtype, device=cuda)
+        t = buf[1:].view(a.shape)
+        t.copy_(a)
+        shifted.append(t)
+    align = wkv6.alignment(*(t.data_ptr() for t in shifted))
+    assert align == dtype.itemsize
+    plan = wkv6.launch_plan(2, 45, 64, vd, dtype, align)
+    assert plan["bytes"] == dtype.itemsize
+    out = wkv6.wkv6(*shifted, args[4])
     _model_close(out, wkv6.wkv6_plain(*args), dtype)
     torch.cuda.synchronize()
 
@@ -422,8 +483,27 @@ def test_model_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):                  # not contiguous
         rt = torch.zeros((2, 16, 64), device=cuda).transpose(1, 2)
         wkv6.wkv6(rt, r, r, r, u)
-    with pytest.raises(ValueError):                  # u is (K,)
+    with pytest.raises(ValueError):                  # u is (K,) or (H, K)
         wkv6.wkv6(r, r, r, r, u[:8])
+    with pytest.raises(ValueError):                  # H must divide BH
+        wkv6.wkv6(r, r, r, r, torch.zeros((3, 16), device=cuda))
+    with pytest.raises(ValueError):                  # (H, K) with K wrong
+        wkv6.wkv6(r, r, r, r, torch.zeros((2, 8), device=cuda))
+    with pytest.raises(ValueError):                  # u of three dimensions
+        wkv6.wkv6(r, r, r, r, torch.zeros((1, 2, 16), device=cuda))
+    plan = wkv6.launch_plan(2, 64, 16, 16, torch.float32)
+    ru = torch.empty(r.numel() + 1, device=cuda)[1:].view(r.shape)
+    for bad, args in [(dict(plan, threads=plan["threads"] + 32), (r,) * 4),
+                      (dict(plan, tile=16), (r,) * 4),
+                      (dict(plan, stages=3), (r,) * 4),
+                      (dict(plan, cols=3), (r,) * 4),
+                      (dict(plan, rows=16), (r,) * 4),
+                      (dict(plan, grid=plan["grid"] + 1), (r,) * 4),
+                      (dict(plan, smem=plan["smem"] - 4), (r,) * 4),
+                      (dict(plan, bytes=32), (r,) * 4),
+                      (plan, (ru, r, r, r))]:     # 16-byte copies, unaligned r
+        with pytest.raises(RuntimeError):
+            wkv6.wkv6(*args, u, plan=bad)
     q = torch.zeros((2, 128, 64), device=cuda)
     with pytest.raises(TypeError):
         flash_attention.flash_attention(q.double(), q.double(), q.double())

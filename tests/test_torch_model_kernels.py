@@ -25,6 +25,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import flash_attention as jfa  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import wkv6 as jwkv6  # noqa: E402
+from repro.models import rwkv as jrwkv  # noqa: E402
 from repro_torch.kernels import dispatch, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import wkv6  # noqa: E402
@@ -102,6 +103,33 @@ def test_wkv6_ragged_t():
     exp = jref.wkv6(*jargs)
     _close(wkv6.wkv6_plain(*targs), exp)
     _close(ref.wkv6(*targs), exp)
+
+
+@pytest.mark.parametrize("bh,heads,kd,vd", [(6, 3, 64, 64), (4, 4, 16, 48),
+                                             (2, 1, 32, 32)])
+def test_wkv6_per_head_u_vs_jax(bh, heads, kd, vd):
+    """u (H, K), head bh taking row bh % H: the port's plain version, ref
+    and the kernel's partition against JAX `models/rwkv.py::_wkv_with_state`
+    with S0 = 0, in float32."""
+    arrs = _wkv6_inputs(bh + heads + kd, bh, 70, kd, vd)
+    arrs[4] = (np.random.default_rng(heads).normal(size=(heads, kd)) * 0.5
+               ).astype(np.float32)
+    jargs, targs = _both(arrs, "float32")
+    exp, _ = jrwkv._wkv_with_state(*jargs, jnp.zeros((bh, kd, vd), jnp.float32))
+    _close(wkv6.wkv6_plain(*targs), exp)
+    _close(ref.wkv6(*targs), exp)
+    _close(ops.wkv6(*targs, backend="plain"), exp)
+    plan = wkv6.launch_plan(bh, 70, kd, vd, torch.float32)
+    _close(wkv6.wkv6_partitioned(*targs, plan), exp)
+
+
+def test_wkv6_rejects_bad_bonus_shapes():
+    """u is (K,) or (H, K) with H dividing BH."""
+    _, (r, k, v, w, u) = _both(_wkv6_inputs(2, 4, 16, 16), "float32")
+    for bad in (u[:8], torch.zeros((3, 16)), torch.zeros((2, 8)),
+                torch.zeros((1, 2, 16))):
+        with pytest.raises(ValueError):
+            wkv6.wkv6_plain(r, k, v, w, bad)
 
 
 # --- K9 flash attention -----------------------------------------------------
