@@ -74,11 +74,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 port never calls); K9's lines add the SFU's exp floor (one
                 exp per unmasked pair) and its time before the redesign
                 for the tensor cores; K8's add every launch plan the
-                launcher builds for the shape (wkv6.alternatives, forced
-                through plan=), each held against the plain version and
-                timed in two rounds with its blocks per SM and registers,
-                its time before the redesign (K8_BEFORE_MS) and the bound under the
-                unfactored count of 7 flops an element beside this one.
+                launcher takes for the shape (wkv6.alternatives: each block
+                width of the dtype's thread tile, forced through plan=),
+                each held against the plain version and timed in two rounds
+                with its blocks per SM and registers, its time before the
+                redesign (K8_BEFORE_MS) and the bound under the unfactored
+                count of 7 flops an element beside this one.  The times
+                before the redesigns and the 7-flop bound are printed in
+                these lines only, not in the JSON kernel table.
 
 The line before the last is the card's `nvidia-smi` name and power limit;
 the line before that is the JSON kernel table; the last line is
@@ -359,10 +362,12 @@ def check_sass(counts: dict) -> None:
 
 
 def wkv6_instantiations() -> list:
-    """Every K8 instantiation the launcher builds: 'wkv6_<dt>_k<K>_r<R>c<C>'."""
+    """Every K8 instantiation the launcher builds, the dtype's thread tile at
+    each K: 'wkv6_<dt>_k<K>_r<R>c<C>'."""
     from repro_torch.kernels import wkv6
-    return [f"wkv6_{dt}_k{K}_r{r}c{c}" for dt in ("f32", "bf16")
-            for K in wkv6.HEAD_DIMS for r, c in wkv6.VARIANTS.values()]
+    return [f"wkv6_{dt}_k{K}_r{wkv6.TILES[dtype][0]}c{wkv6.TILES[dtype][1]}"
+            for dtype, dt in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
+            for K in wkv6.HEAD_DIMS]
 
 
 def check_wkv6_ptxas(ptxas: dict) -> None:
@@ -1183,12 +1188,14 @@ def phase_model(ptxas: dict) -> dict:
             dt = "f32" if dtype == torch.float32 else "bf16"
             alts = {}
             if kname == "wkv6":
-                # every plan the launcher builds for this shape: each
-                # held against the plain version, then timed; the first is
-                # the plan's own choice
-                BH, T, d = ins[0].shape
-                plans = wkv6.alternatives(BH, T, d, ins[2].shape[-1], dtype)
-                if dict(plans[0]) != dict(wkv6.launch_plan(BH, T, d, d, dtype)):
+                # every plan the launcher takes for this shape (a block
+                # width each): each held against the plain version, then
+                # timed; the first is the plan's own choice
+                BH, _, d = ins[0].shape
+                V = ins[2].shape[-1]
+                plans = wkv6.alternatives(BH, d, V, dtype)
+                alt_name = lambda p: f"{p['block_cols']} columns"
+                if dict(plans[0]) != dict(wkv6.launch_plan(BH, d, V, dtype)):
                     raise AssertionError("alternatives()[0] is not the plan")
                 for p in plans:
                     a_out = wkv6.wkv6(*ins, plan=p)
@@ -1198,14 +1205,14 @@ def phase_model(ptxas: dict) -> dict:
                                              f"max_abs_err {a_err:.3e}, "
                                              f"{a_share:.3f} of its limit")
                     del a_out
-                    alts[p["variant"]] = dict(
+                    alts[alt_name(p)] = dict(
                         plan=dict(p), max_abs_err=a_err,
                         blocks_per_sm=wkv6.blocks_per_sm(p, d, dtype),
                         ptxas=ptxas.get(f"wkv6_{dt}_k{d}_r{p['rows']}"
                                         f"c{p['cols']}", {}))
                 for rnd in (1, 2):      # two rounds, alternatives in turn
                     for p in plans:
-                        alts[p["variant"]][f"ms_{rnd}"] = time_ms(
+                        alts[alt_name(p)][f"ms_{rnd}"] = time_ms(
                             lambda: wkv6.wkv6(*ins, plan=p), reps=20)
                 var = f"wkv6_{{}}_k{d}_r{plans[0]['rows']}c{plans[0]['cols']}"
             del ref
@@ -1240,7 +1247,6 @@ def phase_model(ptxas: dict) -> dict:
                 lib_txt += (f" sfu_exp_floor_ms={sfu_ms:.4f} (at {clock:.0f} MHz)"
                             f" before_ms={before:.4f} (FP32-pipe kernel; "
                             f"{before / ms:.2f}x)")
-            bound7 = None
             if kname == "wkv6":
                 before = K8_BEFORE_MS[(cname, dt)]
                 bound7 = max(t_bytes, wkv6_flops_unfactored(case)
@@ -1271,9 +1277,7 @@ def phase_model(ptxas: dict) -> dict:
                 library_ms=library_ms, bound_ms=bound, sfu_floor_ms=sfu_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=moved, flops=flops, shape=list(ins[0].shape),
-                ptxas=regs, bound_ms_7flop=bound7,
-                before_ms=(K8_BEFORE_MS.get((cname, dt)) if kname == "wkv6"
-                           else K9_BEFORE_MS.get((cname, dt))),
+                ptxas=regs,
                 alternatives={n: {k: a[k] for k in ("ms_1", "ms_2",
                                                     "max_abs_err", "ptxas",
                                                     "blocks_per_sm")}
@@ -1295,8 +1299,7 @@ def model_rows(model: dict) -> list:
         cases = {c: {dt: {k: model["results"][(c, dt)][k] for k in
                           ("ms", "bound_ms", "bound_by", "plain_ms",
                            "library_ms", "max_abs_err", "limit_share",
-                           "shape", "before_ms", "bound_ms_7flop",
-                           "alternatives", "plan", "ptxas")}
+                           "shape", "alternatives", "plan", "ptxas")}
                       for dt in ("f32", "bf16")}
                  for c, case in MODEL_CASES.items()
                  if (case["op"] == "wkv6") == (name == "wkv6")}

@@ -100,12 +100,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // shared-memory loads of each step's operands and the shuffles add to it
 // (PERF.md, K8), so the design cuts both per element of S:
 //   * S (K x V per head) lives in registers, R rows by C columns a thread
-//     (the plan's variant).  A column's K rows are split over L = K / R
-//     neighbouring lanes; lane g of a column group holds rows 4 L q + 4 g
-//     + e (q < R / 4, e < 4), so one 16-byte load of r, k or w (8 bytes in
-//     bfloat16, widened in registers) feeds 4 C FMAs and the L lanes of a
-//     group read L consecutive pieces.  The next step's operands are read
-//     before this step's arithmetic.
+//     (4 x 8 in float32, 8 x 4 in bfloat16).  A column's K rows are split
+//     over L = K / R neighbouring lanes; lane g of a column group holds
+//     rows 4 L q + 4 g + e (q < R / 4, e < 4), so one 16-byte load of r, k
+//     or w (8 bytes in bfloat16, widened in registers) feeds 4 C FMAs and
+//     the L lanes of a group read L consecutive pieces.  The next step's
+//     operands are read before this step's arithmetic.
 //   * The partial output sums of a column are reduced over its L lanes with
 //     __shfl_xor_sync: while a lane holds more than one column, each stage
 //     sends half of them to its partner and keeps the other half (C/2 +
@@ -387,17 +387,18 @@ cudaError_t wkv_ready(WkvKernel<T>* kernel) {
   return err;
 }
 
-// The thread tiles the launcher builds (kernels/wkv6.py: VARIANTS), for K in
-// {16, 32, 64}: rows x columns of S a thread holds; cudaErrorInvalidValue
-// for any other
+// The thread tile the launcher builds for each dtype (kernels/wkv6.py:
+// TILES): rows x columns of S a thread holds, for K in {16, 32, 64};
+// cudaErrorInvalidValue for any other
+template <typename T> struct WkvTile;
+template <> struct WkvTile<float> { static constexpr int R = 4, C = 8; };
+template <> struct WkvTile<__nv_bfloat16> { static constexpr int R = 8, C = 4; };
+
 template <typename T, int K>
 cudaError_t wkv_kernel_k(int64_t rows, int64_t cols, WkvKernel<T>* kernel) {
-  switch (rows * 100 + cols) {
-    case 804: return wkv_ready<T, K, 8, 4>(kernel);
-    case 408: return wkv_ready<T, K, 4, 8>(kernel);
-    case 808: return wkv_ready<T, K, 8, 8>(kernel);
-    default: return cudaErrorInvalidValue;
-  }
+  constexpr int R = WkvTile<T>::R, C = WkvTile<T>::C;
+  if (rows != R || cols != C) return cudaErrorInvalidValue;
+  return wkv_ready<T, K, R, C>(kernel);
 }
 
 template <typename T>

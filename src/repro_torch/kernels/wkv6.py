@@ -12,17 +12,19 @@ JAX `models/rwkv.py::_wkv_with_state` repeats it); the result is (BH, T, V)
 in v's dtype.
 
 The kernel (`csrc/model_kernels.cu`: wkv6_kernel<T, K, R, C>) holds R rows
-by C columns of S a thread, in registers; a column's K rows are split over
-L = K / R lanes, whose partial output sums are reduced with warp shuffles.
+by C columns of S a thread, in registers (4 x 8 in float32, 8 x 4 in
+bfloat16: TILES); a column's K rows are split over L = K / R lanes, whose
+partial output sums are reduced with warp shuffles.
 float32 computes the second, factored form: each lane adds (sum over its
 rows of r u k) v_t to its partial sums.  bfloat16 keeps the TPU kernel's
 rounding of u k v^T to bfloat16, element by element: where the bonus
 dominates a row and cancels, the factored sum differs from it by more than
 the bfloat16 tolerance.  A block holds `block_cols` columns of one head
 and walks time in tiles of TILE steps that cp.async brings to shared memory
-a tile ahead.  `launch_plan` picks all of that before the launch, and the C
-launcher refuses any plan it did not build.  K in {16, 32, 64}, any V and
-any T (the TPU version needs T % 128 == 0), float32 and bfloat16.
+a tile ahead.  `launch_plan` picks all of that before the launch; the C
+launcher builds only the dtype's tile and refuses any other plan.  K in
+{16, 32, 64}, any V and any T (the TPU version needs T % 128 == 0), float32
+and bfloat16.
 
 `wkv6` launches the kernel and takes only CUDA tensors; `wkv6_plain` is the
 plain PyTorch version, the Pallas body step by step, used on CPU tensors and
@@ -42,18 +44,15 @@ from . import cuda_lib
 from .dispatch import LAUNCHES
 
 HEAD_DIMS = (16, 32, 64)      # the K the kernel is built for
-# the kernel's instantiations: (rows, columns) of S a thread holds; R <= 8,
-# so a column's rows split over two or more lanes at every K built
-VARIANTS = {"r8c4": (8, 4), "r4c8": (4, 8), "r8c8": (8, 8)}
-DEFAULT_VARIANT = "r8c4"
+# the thread tile of each dtype: (rows, columns) of S a thread holds; the
+# faster on an H100 in every call that timed both (PERF.md, K8)
+TILES = {torch.float32: (4, 8), torch.bfloat16: (8, 4)}
 TILE = 32                     # time steps a tile (kWkvTile)
 STAGES = 2                    # tiles in shared memory (kWkvStages)
 MAX_THREADS = 256             # the kernel's __launch_bounds__
 MAX_WARPS = MAX_THREADS // 32
 MAX_SMEM = 232_448            # shared memory a block can opt in to (H100)
-SMS = 132                     # streaming multiprocessors of an H100 SXM
 MAX_GRID = 2 ** 31 - 1
-CLOSE = 0.8                   # widths scoring within this of the best tie
 
 
 def smem_bytes(K: int, block_cols: int, itemsize: int) -> int:
@@ -81,78 +80,54 @@ def _access_bytes(V: int, itemsize: int, align: int) -> int:
                      f"pointers aligned to {align} bytes")
 
 
-def _balance(blocks: int) -> tuple:
-    """(blocks on the busiest SM, mean over max) when ``blocks`` equal
-    blocks spread over SMS SMs."""
-    busiest = -(-blocks // SMS)
-    return busiest, blocks / (SMS * busiest)
-
-
-@functools.lru_cache(maxsize=256)
-def launch_plan(BH: int, T: int, K: int, V: int, dtype: torch.dtype,
-                align: int = 16, variant: str = DEFAULT_VARIANT
-                ) -> types.MappingProxyType:
-    """K8's launch for BH heads of T steps, K rows and V columns: the
-    variant's thread tile (rows x cols of S, lanes a column), the columns a
-    block holds, threads, time tile, stages, shared bytes, access width
-    (from V and ``align``, the pointers' common alignment) and grid.  Read
-    only (plans are cached).
-
-    The block width is a whole number of warps (a warp holds 32 cols / lanes
-    columns), at most MAX_WARPS of them and MAX_SMEM shared bytes, and no
-    wider than V needs.  Of those, the plan scores each width by the share
-    of the card's SM-slots that its blocks fill evenly (`balance`: the mean
-    blocks a SM over the busiest SM's, assuming equal blocks spread over
-    SMS SMs) times the share of its columns that are live, and takes the
-    widest within CLOSE of the best score: a wider block copies each head's
-    r, k and w fewer times.  At rwkv6-3b one block a head (balance 0.81)
-    ran 3 % faster than two (0.97) on an H100 (PERF.md, K8), so CLOSE
-    is 0.8."""
+def _plans(BH: int, K: int, V: int, dtype: torch.dtype, align: int) -> list:
+    """Every launch of K8 for BH heads of K rows and V columns, widest block
+    first: the dtype's thread tile, and each block width that is a whole
+    number of warps, at most MAX_WARPS of them and MAX_SMEM shared bytes,
+    and no wider than V needs."""
     if dtype not in cuda_lib.MODEL_DTYPES:
         raise TypeError(f"wkv6: {dtype} is not built (float32 or bfloat16)")
     if K not in HEAD_DIMS:
         raise ValueError(f"wkv6: K={K} is not built (K in {HEAD_DIMS})")
-    if variant not in VARIANTS:
-        raise ValueError(f"wkv6: variant {variant!r} is not built "
-                         f"({sorted(VARIANTS)})")
-    if BH < 1 or T < 1 or V < 1:
-        raise ValueError(f"wkv6: empty input (BH={BH}, T={T}, V={V})")
-    itemsize = dtype.itemsize
-    rows, cols = VARIANTS[variant]
+    if BH < 1 or V < 1:
+        raise ValueError(f"wkv6: empty input (BH={BH}, V={V})")
+    rows, cols = TILES[dtype]
     lanes = K // rows
     warp_cols = 32 // lanes * cols
-    best = []
+    access = _access_bytes(V, dtype.itemsize, align)
+    plans = []
     for nw in range(1, MAX_WARPS + 1):
         block_cols = nw * warp_cols
-        if block_cols >= V + warp_cols:        # wider than V needs
+        smem = smem_bytes(K, block_cols, dtype.itemsize)
+        if block_cols >= V + warp_cols or smem > MAX_SMEM:
             break
-        smem = smem_bytes(K, block_cols, itemsize)
-        if smem > MAX_SMEM:
-            break
-        nvb = -(-V // block_cols)
-        busiest, balance = _balance(BH * nvb)
-        best.append((balance * V / (nvb * block_cols), block_cols, nvb,
-                     busiest, balance, smem))
-    top = max(b[0] for b in best)
-    score, block_cols, nvb, busiest, balance, smem = [
-        b for b in best if b[0] >= CLOSE * top][-1]
-    grid = BH * nvb
-    if grid > MAX_GRID:
-        raise ValueError(f"wkv6: {grid} blocks are more than a grid holds")
-    return types.MappingProxyType(dict(
-        variant=variant, rows=rows, cols=cols, lanes=lanes,
-        warp_cols=warp_cols, block_cols=block_cols,
-        threads=block_cols // cols * lanes, tile=TILE, stages=STAGES,
-        smem=smem, bytes=_access_bytes(V, itemsize, align), grid=grid,
-        busiest=busiest, balance=balance))
+        grid = BH * -(-V // block_cols)
+        if grid > MAX_GRID:
+            raise ValueError(f"wkv6: {grid} blocks are more than a grid holds")
+        plans.append(types.MappingProxyType(dict(
+            rows=rows, cols=cols, lanes=lanes, warp_cols=warp_cols,
+            block_cols=block_cols, threads=block_cols // cols * lanes,
+            tile=TILE, stages=STAGES, smem=smem, bytes=access, grid=grid)))
+    return plans[::-1]
 
 
-def alternatives(BH: int, T: int, K: int, V: int, dtype: torch.dtype,
+@functools.lru_cache(maxsize=256)
+def launch_plan(BH: int, K: int, V: int, dtype: torch.dtype,
+                align: int = 16) -> types.MappingProxyType:
+    """K8's launch for BH heads of K rows and V columns: the dtype's thread
+    tile (rows x cols of S, lanes a column), the widest block (a whole head
+    at rwkv6-3b, so r, k and w are copied once a head; wider ran faster on
+    an H100, PERF.md, K8), threads, time tile, stages, shared bytes, access
+    width (from V and ``align``, the pointers' common alignment) and grid.
+    The sequence length does not enter it.  Read only (plans are cached)."""
+    return _plans(BH, K, V, dtype, align)[0]
+
+
+def alternatives(BH: int, K: int, V: int, dtype: torch.dtype,
                  align: int = 16) -> list:
-    """Every plan the launcher builds for this shape: one a variant, the
-    default first."""
-    names = [DEFAULT_VARIANT] + [n for n in VARIANTS if n != DEFAULT_VARIANT]
-    return [launch_plan(BH, T, K, V, dtype, align, n) for n in names]
+    """Every plan the launcher takes for this shape: one a block width, the
+    plan's own (the widest) first."""
+    return _plans(BH, K, V, dtype, align)
 
 
 def lane_rows(K: int, rows: int) -> list:
@@ -281,7 +256,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"wkv6: empty input (BH={BH}, T={T}, V={V})")
     if plan is None:
         align = alignment(*(t.data_ptr() for t in (r, k, v, w)))
-        plan = launch_plan(BH, T, K, V, v.dtype, align)
+        plan = launch_plan(BH, K, V, v.dtype, align)
     H = u.shape[0] if u.dim() == 2 else 1
     out = torch.empty_like(v)
     cuda_lib.launch("wkv6", v.dtype, v.device, r.data_ptr(), k.data_ptr(),

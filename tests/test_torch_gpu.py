@@ -389,11 +389,12 @@ def test_wkv6_per_head_u(cuda, dtype, bh, heads, kd):
 @pytest.mark.parametrize("kd", wkv6.HEAD_DIMS)
 @pytest.mark.parametrize("bh,vd", [(3, 130), (320, 64)])
 def test_wkv6_every_plan(cuda, dtype, kd, bh, vd):
-    """Every plan the launcher builds, forced through plan=."""
+    """Every plan the launcher takes for the shape (each block width of the
+    dtype's tile), forced through plan=."""
     args = _wkv6_args(cuda, dtype, bh, 40, kd, vd, kd + bh + vd)
     ref = wkv6.wkv6_plain(*args)
-    plans = wkv6.alternatives(bh, 40, kd, vd, dtype)
-    assert {p["variant"] for p in plans} == set(wkv6.VARIANTS)
+    plans = wkv6.alternatives(bh, kd, vd, dtype)
+    assert dict(plans[0]) == dict(wkv6.launch_plan(bh, kd, vd, dtype))
     for plan in plans:
         _model_close(wkv6.wkv6(*args, plan=plan), ref, dtype)
     torch.cuda.synchronize()
@@ -414,7 +415,7 @@ def test_wkv6_unaligned_pointers(cuda, dtype, vd):
         shifted.append(t)
     align = wkv6.alignment(*(t.data_ptr() for t in shifted))
     assert align == dtype.itemsize
-    plan = wkv6.launch_plan(2, 45, 64, vd, dtype, align)
+    plan = wkv6.launch_plan(2, 64, vd, dtype, align)
     assert plan["bytes"] == dtype.itemsize
     out = wkv6.wkv6(*shifted, args[4])
     _model_close(out, wkv6.wkv6_plain(*args), dtype)
@@ -491,9 +492,14 @@ def test_model_wrappers_reject_bad_inputs(cuda):
         wkv6.wkv6(r, r, r, r, torch.zeros((2, 8), device=cuda))
     with pytest.raises(ValueError):                  # u of three dimensions
         wkv6.wkv6(r, r, r, r, torch.zeros((1, 2, 16), device=cuda))
-    plan = wkv6.launch_plan(2, 64, 16, 16, torch.float32)
+    plan = wkv6.launch_plan(2, 16, 16, torch.float32)
     ru = torch.empty(r.numel() + 1, device=cuda)[1:].view(r.shape)
+    # bfloat16's 8 x 4 tile, consistent in every other entry, is not built
+    # for float32
+    other = dict(plan, rows=8, cols=4)
+    assert other["threads"] == other["block_cols"] // 4 * (16 // 8)
     for bad, args in [(dict(plan, threads=plan["threads"] + 32), (r,) * 4),
+                      (other, (r,) * 4),
                       (dict(plan, tile=16), (r,) * 4),
                       (dict(plan, stages=3), (r,) * 4),
                       (dict(plan, cols=3), (r,) * 4),

@@ -119,7 +119,7 @@ def test_wkv6_per_head_u_vs_jax(bh, heads, kd, vd):
     _close(wkv6.wkv6_plain(*targs), exp)
     _close(ref.wkv6(*targs), exp)
     _close(ops.wkv6(*targs, backend="plain"), exp)
-    plan = wkv6.launch_plan(bh, 70, kd, vd, torch.float32)
+    plan = wkv6.launch_plan(bh, kd, vd, torch.float32)
     _close(wkv6.wkv6_partitioned(*targs, plan), exp)
 
 
