@@ -2,8 +2,17 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # full size: 160,000 triangles x 16 layers
+    python3 chip_smoke.py --k7-only [--src DIR]   # K7 at (16, 160000) only
+    python3 chip_smoke.py --k7-depths             # K7's variants over depths
 
-Phases (each prints its own lines; any failure raises and exits non-zero):
+With --k7-only, K7 through the default call of the repro_torch found in
+DIR (an earlier checkout's, to time two kernels in one run), by the three
+methods of phase 3; with --k7-depths, both of K7's variants at depths
+around the plan's switch to global (the source of tridiag.MIN_BLOCKS).
+Each prints its lines, a JSON line and the card's name and power limit.
+Phases of the run with no arguments:
+
+(each prints its own lines; any failure raises and exits non-zero):
 
   1. device   — the card's name and power limit;
   2. build    — compiles every source under src/repro_torch/csrc/
@@ -18,11 +27,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 STG) and those 128 bits wide, in each K8 instantiation
                 (wkv6_<dtype>_k<K>_r<R>c<C>) the shuffles (SHFL), async
                 copies (LDGSTS, UTMALDG) and packed bf16 multiplies (HMUL2),
+                and in each K7 instantiation (tridiag_<dtype>_<variant>,
+                onchip or global) the global loads and stores, cp.async
+                copies, shared and local accesses (LDG, STG, LDGSTS, STS,
+                LDS, STL, LDL) and the global loads that come after a
+                global store in the code;
                 and fails unless every bf16 K9 variant has HGMMA and
                 UTMALDG, every float32 one LDGSTS, every vector K5/K6
                 variant 128-bit loads and stores, every K8 instantiation
-                SHFL and LDGSTS or UTMALDG (and HMUL2 in bf16), and no K8
-                instantiation spills;
+                SHFL and LDGSTS or UTMALDG (and HMUL2 in bf16), every K7
+                onchip instantiation stores to device memory only x,
+                after its last load (no STL or LDL, no LDG after an STG),
+                and no K8 or K7 instantiation spills;
   3. kernels  — each CUDA kernel (K1 solve_r, K2 solve_w, K3 block_thomas,
                 K4 lateral_flux, K5 soa_to_cell, K6 cell_to_soa, K7 tridiag)
                 against its plain PyTorch version at the main path's shapes,
@@ -42,20 +58,33 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                 timed beside them, and both also by torch.profiler's device
                 time per kernel, by events with the device kept busy while
                 the host enqueues, and in one CUDA graph of 20 calls, with
-                the wrapper's host time per call);
+                the wrapper's host time per call); K7 bitwise, at
+                (16, 160,000) through both variants (the plan's onchip,
+                then global, forced through plan=), at nt = 159,963
+                through the plan, at the first depth the plan gives to
+                global through both and at the first depth past shared
+                memory, each timed in two rounds by CUDA events as the
+                other kernels are (the table's ms) and by primed events,
+                then by the profiler's device time, with its host time a
+                call, registers and SASS counts; at (16, 160,000) its
+                time before the redesign (K7_BEFORE_MS) and the 0.70
+                share of the bound are checked by each of the three
+                times, in the log lines only;
   4. main path — 3 steps of the quickstart's baroclinic-front case widened to
                 rect_mesh(400, 200) (~333 m cells, 160,000 triangles, 16
                 layers; 20 external sub-steps, which the setup picks for
                 this mesh's thinnest triangle) through the cuda backend,
-                with the launch counters read just after; then the step
-                boundary: state_to_cell -> state_from_cell of the stepped
-                state (bitwise round trip, 4 launches each of K5 and K6) and
-                the state's GLS diffusion systems through ops.tridiag (K7);
-                every cuda dispatch in the metrics registry must match one
-                kernel launch.  Then the same 3 steps through the plain
-                backend on the card, which must agree; then 10 more cuda
-                steps, timed for the steady ms/step.  Run in float32 and
-                again in float64;
+                with the launch counters read just after (K1, K2, K3 twice
+                a step, K4 and K7, the GLS diffusion, four times); then the
+                step boundary: state_to_cell -> state_from_cell of the
+                stepped state (bitwise round trip, 4 launches each of K5
+                and K6) and the state's GLS diffusion systems through
+                ops.tridiag (K7, bitwise to thomas_solve); every cuda
+                dispatch in the metrics registry must match one kernel
+                launch.  Then the same 3 steps through the plain backend on
+                the card, counted the same way, which must agree; then 10
+                more cuda steps, timed for the steady ms/step.  Run in
+                float32 and again in float64;
   5. observed step — 3 steps of the same case in float64 through
                 obs.diagnostics.step_with_diagnostics, writing metrics JSONL
                 into chiprun_out/, held by a halting MonitorPolicy (non-finite
@@ -89,6 +118,7 @@ the line before that is the JSON kernel table; the last line is
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
@@ -138,7 +168,8 @@ REPLACES = {
     "cell_to_soa": "src/repro/kernels/cell_transpose.py:61",
     "tridiag": "src/repro/kernels/tridiag.py:51",
 }
-PER_STEP = {"solve_r": 2, "solve_w": 2, "block_thomas": 2, "lateral_flux": 4}
+PER_STEP = {"solve_r": 2, "solve_w": 2, "block_thomas": 2, "lateral_flux": 4,
+            "tridiag": 4}
 # launches of the step boundary: state_to_cell + state_from_cell of the 4
 # 3D fields, and the GLS k and eps diffusion systems through ops.tridiag
 BOUNDARY = {"soa_to_cell": 4, "cell_to_soa": 4, "tridiag": 2}
@@ -168,6 +199,10 @@ K9_BEFORE_MS = {("olmo-1b", "f32"): 22.5265, ("olmo-1b", "bf16"): 22.3221,
 # K8's times before its redesign (the kernel that held one column a thread;
 # NVIDIA H100 80GB HBM3 at 700 W, PERF.md's K8 row), printed beside this run's
 K8_BEFORE_MS = {("rwkv6-3b", "f32"): 4.2210, ("rwkv6-3b", "bf16"): 7.2299}
+# K7's times before its redesign (the kernel with a global cp scratch, at
+# (16, 160000); NVIDIA H100 80GB HBM3 at 700 W, PERF.md's K7 row), printed
+# beside this run's
+K7_BEFORE_MS = {"f32": 0.0369, "f64": 0.0724}
 SFU_EX2_PER_CLOCK = 16 * 132   # MUFU.EX2 results per clock: 16 per SM, 132 SMs
 RAGGED_NT = 159963    # a column count that is not a multiple of the cell
 OBS_DRIFT_MAX = 1e-10  # volume and T/S mass drift over the observed steps
@@ -201,9 +236,10 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 def kernel_variant(name: str):
     """'solve_r_f32', 'block_thomas_f64_k2_tc16_onchip',
-    'flash_attention_bf16_d128', 'soa_to_cell_f32_v4', 'wkv6_bf16_k64_r8c4'
-    from a mangled entry name, or None (K8's kernels are
-    wkv6_kernel<T, K, R, C>, K3's block_thomas_kernel<T, K, TC, ONCHIP>,
+    'flash_attention_bf16_d128', 'soa_to_cell_f32_v4', 'wkv6_bf16_k64_r8c4',
+    'tridiag_f32_onchip' from a mangled entry name, or None (K8's kernels
+    are wkv6_kernel<T, K, R, C>, K7's tridiag_kernel<T, ONCHIP>,
+    K3's block_thomas_kernel<T, K, TC, ONCHIP>,
     K9's flash_bf16_kernel<D> and flash_f32_kernel<D>, K5/K6's
     soa_to_cell_kernel<T, VEC, N> and cell_to_soa_kernel<T, VEC, N>).  The
     kernel's identifier is found by its length prefix, since the
@@ -221,6 +257,10 @@ def kernel_variant(name: str):
         dt = {"f": "f32", "d": "f64"}[bt.group(1)]
         var = "onchip" if bt.group(4) == "1" else "global"
         return f"block_thomas_{dt}_k{bt.group(2)}_tc{bt.group(3)}_{var}"
+    tr = re.search(r"tridiag_kernelI(f|d)Lb([01])E", name)
+    if tr:     # K7: variant
+        dt = {"f": "f32", "d": "f64"}[tr.group(1)]
+        return f"tridiag_{dt}_{'onchip' if tr.group(2) == '1' else 'global'}"
     ct = re.search(r"(soa_to_cell|cell_to_soa)_kernelI(f|d)Li(\d+)E", name)
     if ct:     # K5 / K6: v = elements per access, 1 in the scalar variant
         dt = {"f": "f32", "d": "f64"}[ct.group(2)]
@@ -273,6 +313,10 @@ COPY_KERNELS = ("soa_to_cell", "cell_to_soa")
 # K8: warp shuffles (the lanes' partial sums, sum r u k), cp.async (the
 # tiles), packed bfloat16 multiplies (k v rounded to bfloat16), FMAs
 WKV_OPS = ("SHFL", "LDGSTS", "UTMALDG", "HMUL2", "FFMA")
+# K7: global loads and stores, cp.async, shared and local (spill) accesses;
+# LDG_after_STG counts the global loads that come after the first global
+# store in the code
+TRI_OPS = ("LDG", "STG", "LDGSTS", "STS", "LDS", "STL", "LDL", "LDG_after_STG")
 
 
 def disassembler() -> str:
@@ -296,7 +340,8 @@ def sass_counts(so: Path) -> tuple:
     """({variant: {op: count}}, the tool used) from `cuobjdump -sass` of the
     built library: the ops of SASS_OPS in each K9 variant, those of
     COPY_OPS in each K5/K6 variant (an opcode with a `.128` modifier, as
-    in `LDG.E.EF.128`, counts under its op and under op.128)."""
+    in `LDG.E.EF.128`, counts under its op and under op.128), WKV_OPS in
+    each K8 instantiation and TRI_OPS in each K7 one."""
     tool = disassembler()
     text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                           text=True, check=True).stdout
@@ -312,6 +357,8 @@ def sass_counts(so: Path) -> tuple:
                 cur, ops = var, COPY_OPS
             elif var.startswith("wkv6"):
                 cur, ops = var, WKV_OPS
+            elif var.startswith("tridiag"):
+                cur, ops = var, TRI_OPS
             if cur:
                 out[cur] = dict.fromkeys(ops, 0)
             continue
@@ -323,6 +370,8 @@ def sass_counts(so: Path) -> tuple:
             op, mods = m.group(1), m.group(2).split(".")[1:]
             if op in out[cur]:
                 out[cur][op] += 1
+            if op == "LDG" and "LDG_after_STG" in out[cur] and out[cur]["STG"]:
+                out[cur]["LDG_after_STG"] += 1
             if "128" in mods and f"{op}.128" in out[cur]:
                 out[cur][f"{op}.128"] += 1
     return out, tool
@@ -335,8 +384,19 @@ def check_sass(counts: dict) -> None:
     instantiation warp shuffles (SHFL) and async copies (LDGSTS or
     UTMALDG: each plan with an access width of 4 bytes or more copies its
     tiles by cp.async), and each bfloat16 one the packed multiply (HMUL2)
-    that rounds k v."""
+    that rounds k v; every K7 onchip instantiation stores nothing to device
+    memory but x, and only after its last load: no local access and no LDG
+    after an STG in its code."""
     from repro_torch.kernels.flash_attention import HEAD_DIMS
+    for var in tridiag_instantiations():
+        c = counts.get(var, {})
+        if not c.get("LDG") or not c.get("STG"):
+            raise AssertionError(f"{var}: no global loads or stores in its "
+                                 f"SASS ({c})")
+        if var.endswith("onchip") and (c["STL"] or c["LDL"]
+                                       or c["LDG_after_STG"]):
+            raise AssertionError(f"{var}: stores before its backward sweep's "
+                                 f"x, or spills ({c})")
     for var in wkv6_instantiations():
         c = counts.get(var, {})
         if not c.get("SHFL") or not (c.get("LDGSTS") or c.get("UTMALDG")):
@@ -370,9 +430,16 @@ def wkv6_instantiations() -> list:
             for K in wkv6.HEAD_DIMS]
 
 
-def check_wkv6_ptxas(ptxas: dict) -> None:
-    """Every K8 instantiation is in the ptxas report and spills nothing."""
-    for var in wkv6_instantiations():
+def tridiag_instantiations() -> list:
+    """Every K7 instantiation the launcher builds: 'tridiag_<dt>_<variant>'."""
+    return [f"tridiag_{dt}_{v}" for dt in ("f32", "f64")
+            for v in ("onchip", "global")]
+
+
+def check_ptxas(ptxas: dict) -> None:
+    """Every K8 and K7 instantiation is in the ptxas report and spills
+    nothing."""
+    for var in wkv6_instantiations() + tridiag_instantiations():
         info = ptxas.get(var)
         if not info or "registers" not in info:
             raise AssertionError(f"{var}: not in the ptxas report")
@@ -443,8 +510,7 @@ def kernel_cases(nt: int, nl: int, seed: int):
     (dtype -> the inputs on the card), flops; `exact` cases must equal their
     plain version bitwise; `library` is one PyTorch call computing the same
     function, timed as a yardstick, or None."""
-    from repro_torch.kernels import (cell_transpose, horizontal_flux,
-                                     matrix_free, tridiag)
+    from repro_torch.kernels import cell_transpose, horizontal_flux, matrix_free
     rng = np.random.default_rng(seed)
     r = lambda *s: rng.standard_normal(s, dtype=np.float32)
     F2, bc2 = r(2, nl, 6, nt), r(2, 3, nt)
@@ -456,14 +522,6 @@ def kernel_cases(nt: int, nl: int, seed: int):
     field = r(nl, 6, nt)
     nc = -(-nt // 128)
     cells = r(nc, nl * 6, 128)
-    # diagonally dominant systems shaped like GLS's implicit diffusion
-    # (core/turbulence.py: diffusion_system): lo, up <= 0, d = 1 - lo - up
-    lo_t = -5.0 * rng.random((nl, nt), dtype=np.float32)
-    up_t = -5.0 * rng.random((nl, nt), dtype=np.float32)
-    lo_t[0] = 0.0
-    up_t[-1] = 0.0
-    d_t = 1.0 - lo_t - up_t
-    b_t = r(nl, nt)
     rag = RAGGED_NT
 
     def on(dtype, *arrs):
@@ -524,11 +582,6 @@ def kernel_cases(nt: int, nl: int, seed: int):
              lambda c: cell_transpose.cell_to_soa_plain(c, nt),
              lambda d: unaligned(d, cells), 0, exact=True, library=to_soa,
              variant="scalar"),
-        case("tridiag", f"nt={nt}", tridiag.tridiag, tridiag.tridiag_plain,
-             lambda d: on(d, lo_t, d_t, up_t, b_t), 8 * nl * nt),
-        case("tridiag", f"nt={rag}", tridiag.tridiag, tridiag.tridiag_plain,
-             lambda d: on(d, *(a[:, :rag] for a in (lo_t, d_t, up_t, b_t))),
-             8 * nl * rag),
     ]
 
 
@@ -830,6 +883,235 @@ def phase_block_thomas(nt: int, nl: int, seed: int, ptxas: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3, K7: every variant, the ragged nt and the deep columns, bitwise
+# ---------------------------------------------------------------------------
+# depths of the sweep (--k7-depths) around the plan's switch to global and
+# the shared-memory limit (kernels/tridiag.py: MIN_BLOCKS, MAX_SMEM)
+K7_DEPTHS = {torch.float32: (16, 24, 32, 40, 48, 56, 57, 64, 72, 80, 96, 113,
+                             128, 160, 200, 227),
+             torch.float64: (16, 20, 24, 28, 32, 36, 37, 38, 40, 48, 56, 64,
+                             80, 96, 113)}
+
+
+def tridiag_inputs(nl: int, nt: int, dtype, seed: int) -> list:
+    """dl, d, du, b (nl, nt) on the card: diagonally dominant systems shaped
+    like GLS's implicit diffusion, lo, up <= 0, d = 1 - lo - up."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lo, up = (-5.0 * torch.rand((nl, nt), generator=g, device="cuda")
+              for _ in range(2))
+    lo[0] = 0.0
+    up[-1] = 0.0
+    b = torch.randn((nl, nt), generator=g, device="cuda")
+    return [t.to(dtype) for t in (lo, 1.0 - lo - up, up, b)]
+
+
+def tridiag_round(fn) -> tuple:
+    """One timed round of a K7 call ``fn``: (ms by CUDA events around 20
+    calls, as every other kernel row is timed, ms by events with the calls
+    queued behind a sleep kernel).  Where the wrapper's host time a call
+    exceeds the kernel's, the first measures the host."""
+    return time_ms(fn, reps=20), time_ms(fn, reps=20, primed=True)
+
+
+def tridiag_timed(rows: dict, fns: dict) -> None:
+    """Time each K7 call of ``fns`` ({label: fn}) in two rounds, the second
+    in reverse order, then by the profiler's device time and its host time,
+    into ``rows[label]``: ms and primed_ms (the rounds' means, rounds in
+    ms_rounds / primed_rounds), prof_ms, host_us."""
+    for label in fns:
+        rows[label].update(ms_rounds=[], primed_rounds=[])
+    for order in (list(fns), list(fns)[::-1]):
+        for label in order:
+            ms, primed = tridiag_round(fns[label])
+            rows[label]["ms_rounds"].append(ms)
+            rows[label]["primed_rounds"].append(primed)
+    for label, fn in fns.items():
+        r = rows[label]
+        r["ms"] = float(np.mean(r["ms_rounds"]))
+        r["primed_ms"] = float(np.mean(r["primed_rounds"]))
+        r["prof_ms"], r["prof_per_call"] = device_ms(fn, reps=20)
+        r["host_us"] = host_us(fn)
+
+
+def tridiag_times_txt(r: dict) -> str:
+    """The three times of a K7 row, each with its share of the bound."""
+    fmt = lambda t: "not measured" if t is None else (
+        f"{t:.4f} ({r['bound_ms'] / t:.3f} of bound)")
+    return (f"events ms={fmt(r['ms'])} (rounds "
+            f"{', '.join(f'{t:.4f}' for t in r['ms_rounds'])}); primed events "
+            f"{fmt(r['primed_ms'])} (rounds "
+            f"{', '.join(f'{t:.4f}' for t in r['primed_rounds'])}); profiler "
+            f"device {fmt(r['prof_ms'])} ({r['prof_per_call']:g} kernels a "
+            f"call); host {r['host_us']:.1f} us a call")
+
+
+def tridiag_cases(nt: int, nl: int, seed: int, dtype) -> dict:
+    """{label: (inputs, plan)}: at (nl, nt) both plans the launcher takes
+    (the plan's own, onchip, first), at the ragged nt the plan, at the first
+    depth the plan gives to global both, and at the first depth past shared
+    memory the one plan (global)."""
+    from repro_torch.kernels import tridiag as tri
+    first = next(n for n in range(nl, 10_000)
+                 if tri.launch_plan(n, nt, dtype)["variant"] == "global")
+    past = next(n for n in range(first, 10_000)
+                if len(tri.alternatives(n, nt, dtype)) == 1)
+    ins = tridiag_inputs(nl, nt, dtype, seed)
+    deep = tridiag_inputs(first, nt, dtype, seed + 1)
+    cases = {f"nt={nt} {p['variant']}": (ins, p)
+             for p in tri.alternatives(nl, nt, dtype)}
+    cases[f"nt={RAGGED_NT} onchip"] = (
+        [a[:, :RAGGED_NT].contiguous() for a in ins],
+        tri.launch_plan(nl, RAGGED_NT, dtype))
+    cases.update({f"nl={first} {p['variant']}": (deep, p)
+                  for p in tri.alternatives(first, nt, dtype)})
+    cases[f"nl={past} global"] = (tridiag_inputs(past, nt, dtype, seed + 2),
+                                  tri.launch_plan(past, nt, dtype))
+    for label, (_, p) in cases.items():
+        if not label.endswith(p["variant"]):
+            raise AssertionError(f"tridiag {label}: the plan is {dict(p)}")
+    return cases
+
+
+def tridiag_bound(ins) -> tuple:
+    """(bytes, flops, bound ms, bound_by) of a K7 solve of ``ins``: each
+    operand read once, x written once; 8 flops a layer and column."""
+    moved, flops = nbytes(*ins, ins[0]), 8 * ins[0].numel()
+    return (moved, flops, *bound_of(moved, flops, ins[0].dtype))
+
+
+def tridiag_targets(r: dict, dt: str) -> str:
+    """ISSUE's two targets for K7 at (16, 160000) by each time of ``r``:
+    faster than the kernel before the redesign (K7_BEFORE_MS, events), and
+    at least 0.70 of the bound."""
+    out = []
+    for key in ("ms", "primed_ms", "prof_ms"):
+        t = r[key]
+        if t is None:
+            out.append(f"{key} not measured")
+            continue
+        out.append(f"{key} {t:.4f}: faster than {K7_BEFORE_MS[dt]:.4f} "
+                   f"{'yes' if t < K7_BEFORE_MS[dt] else 'NO'}, 0.70 of bound "
+                   f"{'yes' if r['bound_ms'] / t >= 0.70 else 'NO'}")
+    return "; ".join(out)
+
+
+def phase_tridiag(nt: int, nl: int, seed: int, ptxas: dict, sass: dict) -> dict:
+    """Phase 3, K7, in float32 and float64: each case of `tridiag_cases`
+    must equal the plain version bitwise; then every case is timed
+    (`tridiag_timed`): by CUDA events as the other kernels are (``ms``,
+    which the kernel table reports), by events primed with a sleep kernel,
+    so that the host's time a call does not show in a ~20 µs kernel, and by
+    the profiler's device time."""
+    from repro_torch.kernels import tridiag as tri
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        dt = "f32" if dtype == torch.float32 else "f64"
+        cases = tridiag_cases(nt, nl, seed, dtype)
+        rows = {}
+        for label, (ins, p) in cases.items():
+            out = tri.tridiag(*ins, plan=p)
+            torch.cuda.synchronize()
+            ref = tri.tridiag_plain(*ins)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            if not torch.equal(out, ref):
+                raise AssertionError(f"tridiag {label} {dt}: not bitwise equal "
+                                     f"to its plain version (max_abs_err {err:.3e})")
+            var = f"tridiag_{dt}_{p['variant']}"
+            moved, flops, bound, by = tridiag_bound(ins)
+            rows[label] = dict(
+                plan=dict(p), instantiation=var, ptxas=ptxas.get(var, {}),
+                sass=sass.get(var, {}), max_abs_err=err, shape=list(ins[0].shape),
+                bytes=moved, flops=flops, bound_ms=bound, bound_by=by,
+                plain_ms=time_ms(lambda: tri.tridiag_plain(*ins), reps=3, warmup=1))
+            del out, ref
+        tridiag_timed(rows, {
+            label: (lambda ins=ins, p=p: tri.tridiag(*ins, plan=p))
+            for label, (ins, p) in cases.items()})
+        for label, r in rows.items():
+            before = (f" before_ms={K7_BEFORE_MS[dt]:.4f} (global cp scratch, "
+                      f"events)" if label.startswith(f"nt={nt} ") else "")
+            log(f"kernel tridiag {dt} {label}: shape={tuple(r['shape'])} plan "
+                f"{r['plan']} bitwise (max_abs_err {r['max_abs_err']:.1e}) "
+                f"{tridiag_times_txt(r)}; plain_ms={r['plain_ms']:.3f} "
+                f"bytes={r['bytes']} flops={r['flops']} bound_ms="
+                f"{r['bound_ms']:.4f} ({r['bound_by']}){before}; ptxas "
+                f"{r['instantiation']} {r['ptxas']}; sass {r['sass']}")
+        del cases
+        torch.cuda.empty_cache()
+        main = rows[f"nt={nt} onchip"]
+        log(f"K7 targets {dt} at {tuple(main['shape'])}: "
+            f"{tridiag_targets(main, dt)}")
+        results[("tridiag", f"nt={nt}", dt)] = dict(
+            {k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                  "bound_by", "bytes", "flops", "shape", "ptxas",
+                                  "sass", "prof_ms", "primed_ms", "host_us",
+                                  "plan")},
+            library_ms=None, cases=rows)
+    return results
+
+
+def k7_only(nt: int, nl: int, seed: int) -> dict:
+    """--k7-only: K7 at (nl, nt) through the default call of the package on
+    sys.path, `tridiag(dl, d, du, b)`, in float32 and float64, held to TOL
+    against its plain version and timed as phase 3 times it; the package
+    may be an earlier checkout's (--src), to time two kernels alike."""
+    from repro_torch.kernels import tridiag as tri
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        dt = "f32" if dtype == torch.float32 else "f64"
+        ins = tridiag_inputs(nl, nt, dtype, seed)
+        err, _ = held(tri.tridiag(*ins), tri.tridiag_plain(*ins), dtype,
+                      f"tridiag {dt}")
+        moved, flops, bound, by = tridiag_bound(ins)
+        rows[dt] = dict(shape=[nl, nt], max_abs_err=err, bytes=moved,
+                        bound_ms=bound, bound_by=by)
+        tridiag_timed(rows, {dt: lambda ins=ins: tri.tridiag(*ins)})
+        log(f"k7-only {tri.__file__} {dt} ({nl}, {nt}): max_abs_err {err:.1e} "
+            f"{tridiag_times_txt(rows[dt])}; bound_ms {bound:.4f} ({by}); "
+            f"{tridiag_targets(rows[dt], dt)}")
+        del ins
+        torch.cuda.empty_cache()
+    return rows
+
+
+def k7_depths(nt: int, seed: int) -> dict:
+    """--k7-depths: both variants the launcher takes at each depth of
+    K7_DEPTHS over nt columns, held bitwise and timed as phase 3 times K7,
+    with the onchip variant's shared bytes and blocks a SM: where the plan's
+    switch to global (kernels/tridiag.py: MIN_BLOCKS) comes from."""
+    from repro_torch.kernels import tridiag as tri
+    rows = {}
+    for dtype, depths in K7_DEPTHS.items():
+        dt = "f32" if dtype == torch.float32 else "f64"
+        for nl in depths:
+            ins = tridiag_inputs(nl, nt, dtype, seed + nl)
+            ref = tri.tridiag_plain(*ins)
+            moved, flops, bound, by = tridiag_bound(ins)
+            fns = {}
+            for p in tri.alternatives(nl, nt, dtype):
+                if not torch.equal(tri.tridiag(*ins, plan=p), ref):
+                    raise AssertionError(f"tridiag ({nl}, {nt}) {dt} "
+                                         f"{p['variant']}: not bitwise equal "
+                                         "to its plain version")
+                label = f"{dt} nl={nl} {p['variant']}"
+                rows[label] = dict(plan=dict(p), bound_ms=bound, bound_by=by,
+                                   onchip_blocks_per_sm=tri.blocks_per_sm(
+                                       dict(smem=2 * nl * tri.THREADS * dtype.itemsize)))
+                fns[label] = lambda ins=ins, p=p: tri.tridiag(*ins, plan=p)
+            tridiag_timed(rows, fns)
+            for label in fns:
+                r = rows[label]
+                log(f"k7-depths {label} (plan "
+                    f"{tri.launch_plan(nl, nt, dtype)['variant']}; onchip "
+                    f"{r['onchip_blocks_per_sm']} blocks a SM): "
+                    f"{tridiag_times_txt(r)}")
+            del ins, ref, fns
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 def run_steps(geom, vg, cfg, st, steps):
@@ -895,8 +1177,8 @@ def phase_boundary(geom, vg, cfg, st, dtype) -> dict:
     """The step boundary of a stepped state on the cuda backend:
     state_to_cell -> state_from_cell must give the state back bitwise (and
     the cells must equal the plain layout transform), and the state's GLS k
-    and eps diffusion systems go through ops.tridiag (K7), held to TOL
-    against turbulence.thomas_solve."""
+    and eps diffusion systems go through ops.tridiag (K7), which must equal
+    turbulence.thomas_solve bitwise."""
     from repro_torch.core import layout, stepper, turbulence
     from repro_torch.core.extrusion import layer_geometry
     from repro_torch.kernels import ops
@@ -926,19 +1208,15 @@ def phase_boundary(geom, vg, cfg, st, dtype) -> dict:
             raise AssertionError(f"{name}: cell round trip is not bitwise")
         if not torch.equal(cells[name], layout.soa_to_cell(x)):
             raise AssertionError(f"{name}: cells differ from layout.soa_to_cell")
-    errs = []
     for x, ref in solved:
-        err = float((x - ref).abs().max())
-        scale = max(float(ref.abs().max()), 1.0)
-        if not err <= TOL[dtype] * scale:
-            raise AssertionError(f"tridiag on the GLS system: {err:.3e} > "
-                                 f"{TOL[dtype]:.0e} * {scale:.3e}")
-        errs.append(err)
+        if not torch.equal(x, ref):
+            raise AssertionError(f"tridiag on the GLS system: not bitwise equal "
+                                 f"to thomas_solve (max_abs_err "
+                                 f"{float((x - ref).abs().max()):.3e})")
     log(f"step boundary {dtype}: cell round trip bitwise, cells "
         f"{tuple(cells['T'].shape)}; GLS k/eps systems through ops.tridiag "
-        f"max_abs_err {errs[0]:.3e}, {errs[1]:.3e}; launches "
-        f"{sorted(launches.items())}")
-    return dict(launches=launches, tridiag_err=errs)
+        f"bitwise; launches {sorted(launches.items())}")
+    return dict(launches=launches)
 
 
 def phase_main_path(dtype) -> dict:
@@ -975,7 +1253,11 @@ def phase_main_path(dtype) -> dict:
     boundary = phase_boundary(geom, vg, cfg, st_cuda, dtype)
 
     cfg_plain = dataclasses.replace(cfg, backend="plain")
+    ops.reset_launches()
     st_plain, times_plain = run_steps(geom, vg, cfg_plain, st0, STEPS)
+    expect = {(op, "plain"): STEPS * n for op, n in PER_STEP.items()}
+    if dict(ops.LAUNCHES) != expect:
+        raise AssertionError(f"plain launch counts {dict(ops.LAUNCHES)} != {expect}")
     diffs = compare_states(st_cuda, st_plain, dtype)
     heat = quickstart.heat_content(geom, vg, st_cuda, cfg)
     drift = abs(heat - heat0) / abs(heat0)
@@ -991,7 +1273,7 @@ def phase_main_path(dtype) -> dict:
                ms_max=max(steady) * 1e3, first_step_ms=times[0] * 1e3,
                physical_over_wall=cfg.dt / (ms / 1e3), peak_bytes=peak,
                rel_diff_vs_plain=diffs, heat_drift=drift,
-               launches={**launches, **boundary["launches"]})
+               launches={**boundary["launches"], **launches})
     log(f"main path cuda {dtype}: counted steps "
         f"{[round(t * 1e3, 2) for t in times]} ms; {TIMED_STEPS} steady steps "
         f"{[round(t * 1e3, 2) for t in steady]} ms: mean {ms:.2f} "
@@ -1316,12 +1598,29 @@ def model_rows(model: dict) -> list:
     return rows
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--k7-only", action="store_true",
+                    help="only time K7 at the main path's shape (k7_only)")
+    ap.add_argument("--k7-depths", action="store_true",
+                    help="only sweep K7's variants over depths (k7_depths)")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the directory holding repro_torch (default: ./src)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch.kernels import cuda_lib
+
+    if args.k7_only or args.k7_depths:
+        log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}")
+        cuda_lib.build()
+        rows = (k7_only(2 * NX * (NX // 2), NL, SEED) if args.k7_only
+                else k7_depths(2 * NX * (NX // 2), SEED))
+        print(json.dumps({"src": args.src, "rows": rows}))
+        print(nvidia_smi())
+        return 0
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -1342,7 +1641,7 @@ def main() -> int:
     for line in sorted({ln.strip() for ln in report.splitlines()
                         if "wgmma" in ln.lower() or "setmaxnreg" in ln}):
         log(f"ptxas note: {line}")
-    check_wkv6_ptxas(ptxas)
+    check_ptxas(ptxas)
     sass, tool = sass_counts(so)
     for variant, counts in sorted(sass.items()):
         log(f"sass {variant} ({tool}): {counts}")
@@ -1351,6 +1650,7 @@ def main() -> int:
     # 3. kernels at the main path's shapes
     kres = phase_kernels(2 * NX * (NX // 2), NL, SEED)
     kres.update(phase_block_thomas(2 * NX * (NX // 2), NL, SEED, ptxas))
+    kres.update(phase_tridiag(2 * NX * (NX // 2), NL, SEED, ptxas, sass))
 
     # 4. main path: float32 (the run the kernel table's launches come from),
     # then float64, where every field is held to TOL_PATH
@@ -1388,6 +1688,16 @@ def main() -> int:
                 ms_global_f64=r64["ms_global"],
                 cases={"f32": {"tiles": r32["tiles"], "deep": r32["deep"]},
                        "f64": {"tiles": r64["tiles"], "deep": r64["deep"]}})
+        if name == "tridiag":
+            # every case: each variant at the main path's shape, the ragged
+            # nt, the deep columns; bitwise, with registers and SASS counts
+            table[-1].update(
+                variant=r32["plan"]["variant"], smem=r32["plan"]["smem"],
+                prof_ms=r32["prof_ms"], prof_ms_f64=r64["prof_ms"],
+                primed_ms=r32["primed_ms"], primed_ms_f64=r64["primed_ms"],
+                host_us=r32["host_us"], host_us_f64=r64["host_us"],
+                ptxas=r32["ptxas"], ptxas_f64=r64["ptxas"],
+                cases={"f32": r32["cases"], "f64": r64["cases"]})
         if name in COPY_KERNELS:
             # every K5 / K6 case: the vector one above, the scalar ones
             cases = {}

@@ -220,7 +220,8 @@ def stage(geom: G.Geom2D, vg: VGrid, cfg: OceanConfig, st0: OceanState,
         dz = torch.clamp(vgee.H.mean(dim=0, keepdim=True), min=cfg.h_min) / nl
         if cfg.use_gls and implicit:
             m2, n2 = turbulence.shear_and_buoyancy(ux_e, uy_e, rho, dz)
-            turb1 = turbulence.gls_step(turb_base, m2, n2, dz, dtau)
+            turb1 = turbulence.gls_step(turb_base, m2, n2, dz, dtau,
+                                        backend=cfg.backend)
         else:
             turb1 = turb0
         turb_used = turb1 if implicit else turb0
@@ -306,7 +307,8 @@ def stage(geom: G.Geom2D, vg: VGrid, cfg: OceanConfig, st0: OceanState,
             rho1 = eos.rho_prime(tr1[1], tr1[0], _pressure_dbar(vg, vge1),
                                  cfg.eos_kind)
             m2, n2 = turbulence.shear_and_buoyancy(u1[0], u1[1], rho1, dz)
-            turb1 = turbulence.gls_step(turb_base, m2, n2, dz, dtau)
+            turb1 = turbulence.gls_step(turb_base, m2, n2, dz, dtau,
+                                        backend=cfg.backend)
 
     return StageOut(ext=ext.state, ux=u1[0], uy=u1[1], T=tr1[0], S=tr1[1],
                     turb=turb1, r=r, w_tilde=w_t)

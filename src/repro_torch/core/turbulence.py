@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import ops as kops
+
 G_GRAV = 9.81
 
 
@@ -103,9 +105,11 @@ def diffusion_system(nu_t: torch.Tensor, dz: torch.Tensor, dt: float,
 
 def gls_step(ts: TurbState, m2: torch.Tensor, n2: torch.Tensor,
              dz: torch.Tensor, dt: float, params: GLSParams = GLSParams(),
-             surf_k: float = 0.0) -> TurbState:
+             surf_k: float = 0.0, backend=None) -> TurbState:
     """Advance k-eps one step: semi-implicit sources + implicit vertical
-    diffusion (tridiagonal per column)."""
+    diffusion (tridiagonal per column), solved through `ops.tridiag` on
+    ``backend`` (None: by the tensors' device; K7 on ``cuda``,
+    `thomas_solve` on ``ref`` and ``plain``)."""
     p = params
     k0 = torch.clamp(ts.k, min=p.k_min)
     e0 = torch.clamp(ts.eps, min=p.eps_min)
@@ -123,7 +127,8 @@ def gls_step(ts: TurbState, m2: torch.Tensor, n2: torch.Tensor,
 
     # --- implicit vertical diffusion (tridiagonal per column) ---------------
     def diffuse(f, sigma):
-        return thomas_solve(*diffusion_system(ts.nu_t, dz, dt, sigma), f)
+        lo, d, up = diffusion_system(ts.nu_t, dz, dt, sigma)
+        return kops.tridiag(lo, d, up, f, backend=backend)
 
     k1 = torch.clamp(diffuse(k_src, p.sigma_k), min=p.k_min)
     e1 = torch.clamp(diffuse(e_src, p.sigma_e), min=p.eps_min)

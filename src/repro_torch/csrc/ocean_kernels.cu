@@ -530,38 +530,120 @@ cell_to_soa_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t rows,
 //
 // Replaces the TPU kernel repro/kernels/tridiag.py::tridiag_cell
 // (_tridiag_kernel).
-// Bound on the H100: memory.  Per column and layer it reads 4 values
-// (dl, d, du, b) and writes 1, with ~8 flops and 2 divisions: far below the
-// ridge.  Design: one thread per column walks the layers, as the Pallas
-// kernel walks rows; cp goes to a global scratch laid out (nl, C) like the
-// operands, so every access is coalesced across the warp; dp is written to
-// the output and overwritten in place by x in the backward sweep, as the
-// Pallas kernel does with x_ref / cp_ref.  Any C is taken: the ragged last
-// block is masked, where the TPU version needs C % 128 == 0.  dl[0] and
-// du[nl-1] are ignored (dl[0] multiplies a zero carry).
+// Bound on the H100: memory.  The compulsory bytes are dl, d, du and b read
+// once and x written once, 5 nl C values (51,200,000 bytes in float32 at
+// the step's 16 x 160,000); ~8 flops a layer and column, far below the
+// ridge.
+// Arithmetic: thomas_solve's (core/turbulence.py), op for op, each rounded
+// on its own (no FMA contraction, no reciprocal):
+//   denom = d - dl cp;  cp = du / denom;  dp = (b - dl dp) / denom;
+//   x = dp - cp x, from x = 0 below the last layer,
+// so the kernel equals the plain version bitwise.  dl[0] and du[nl-1] are
+// read and multiply a zero carry, as there.
+// Design, to move only the compulsory bytes and keep enough in flight:
+//  - one thread a column, kTriThreads columns a block; a warp's lanes take
+//    neighbouring columns of each (nl, C) operand, so every access is
+//    coalesced, and the ragged last block is masked;
+//  - the loads do not depend on the recurrence: the four operands of the
+//    next kTriWindow layers wait in a ring of registers ahead of the layer
+//    being eliminated, so a thread keeps 4 kTriWindow loads in flight, not
+//    the 4 of one layer (streaming: each value is read once); they go in
+//    layer order, from four pointers that step by C, which costs fewer
+//    registers than 64-bit index arithmetic a load;
+//  - ONCHIP: cp and dp of every layer stay in shared memory, [l][thread]
+//    (conflict-free), and x is the only store to device memory, once a
+//    value, in the backward sweep.  Shared memory, not registers, holds
+//    them so that registers (45 in float32, 72 in float64) do not cap the
+//    blocks a SM: cp and dp in registers, loops unrolled over the depth,
+//    ran slower on an H100 at 16 layers (PERF.md, K7);
+//  - deeper columns leave too few blocks a SM to keep the loads in flight
+//    (or do not fit at all): the same kernel with ONCHIP = false keeps cp
+//    in a global scratch (nl, C) that the wrapper allocates and dp in x,
+//    both read back by the backward sweep (9 values a layer and column,
+//    not 5), at the occupancy of its registers.
+// The launch plan (variant, shared bytes, grid) is computed in Python
+// (kernels/tridiag.py: launch_plan) and checked by the launcher.
 // ---------------------------------------------------------------------------
+constexpr int kTriThreads = 128;
+constexpr int kTriWindow = 4;          // layers loaded ahead of the recurrence
+
+__device__ __forceinline__ float rn_mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double rn_mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float rn_sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double rn_sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float rn_div(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double rn_div(double a, double b) { return __ddiv_rn(a, b); }
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+struct TriLayer { T a, d, u, b; };     // dl, d, du, b of one layer
+
+// the four operands of this thread's column at the next layer to load
+template <typename T>
+struct TriStream {
+  const T *a, *d, *u, *b;
+  int64_t C;
+  __device__ __forceinline__ TriLayer<T> next() {
+    const TriLayer<T> q{__ldcs(a), __ldcs(d), __ldcs(u), __ldcs(b)};
+    a += C;
+    d += C;
+    u += C;
+    b += C;
+    return q;
+  }
+};
+
+template <typename T, bool ONCHIP>
+__global__ void __launch_bounds__(kTriThreads)
 tridiag_kernel(const T* __restrict__ dl, const T* __restrict__ d,
                const T* __restrict__ du, const T* __restrict__ b,
-               T* __restrict__ x, T* __restrict__ cp_s, int64_t nl, int64_t C) {
-  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+               T* __restrict__ x, T* __restrict__ cp_s, int nl, int64_t C) {
+  constexpr int W = kTriWindow;
+  extern __shared__ __align__(16) unsigned char tri_smem[];
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kTriThreads + threadIdx.x;
   if (t >= C) return;
+  const int64_t stride = ONCHIP ? kTriThreads : C;
+  T* const cps = ONCHIP ? reinterpret_cast<T*>(tri_smem) + threadIdx.x : cp_s + t;
+  T* const dps = ONCHIP ? cps + static_cast<int64_t>(nl) * kTriThreads : x + t;
+  TriStream<T> in{dl + t, d + t, du + t, b + t, C};
+  TriLayer<T> ring[W];                 // layer l waits in slot l % W
+#pragma unroll
+  for (int j = 0; j < W; ++j)
+    if (j < nl) ring[j] = in.next();
   T cp = T(0), dp = T(0);
-  for (int64_t l = 0; l < nl; ++l) {
-    const int64_t i = l * C + t;
-    const T a = dl[i];
-    const T denom = d[i] - a * cp;
-    cp = du[i] / denom;
-    dp = (b[i] - a * dp) / denom;
-    cp_s[i] = cp;
-    x[i] = dp;
+  for (int l0 = 0; l0 < nl; l0 += W) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const int l = l0 + j;
+      if (l < nl) {
+        const TriLayer<T>& q = ring[j];
+        const T denom = rn_sub(q.d, rn_mul(q.a, cp));
+        cp = rn_div(q.u, denom);
+        dp = rn_div(rn_sub(q.b, rn_mul(q.a, dp)), denom);
+        cps[l * stride] = cp;
+        dps[l * stride] = dp;
+        if (l + W < nl) ring[j] = in.next();
+      }
+    }
   }
-  T xn = dp;
-  for (int64_t l = nl - 2; l >= 0; --l) {
-    const int64_t i = l * C + t;
-    xn = x[i] - cp_s[i] * xn;
-    x[i] = xn;
+  // backward, W layers at a time: their cp and dp are read before the first
+  // of them is needed (without ONCHIP, dp is overwritten by x)
+  T xn = T(0);
+  for (int l1 = nl - 1; l1 >= 0; l1 -= W) {
+    T c[W], p[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      if (l1 - j >= 0) {
+        c[j] = cps[(l1 - j) * stride];
+        p[j] = dps[(l1 - j) * stride];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      if (l1 - j >= 0) {
+        xn = rn_sub(p[j], rn_mul(c[j], xn));
+        x[(l1 - j) * C + t] = xn;
+      }
+    }
   }
 }
 
@@ -593,13 +675,13 @@ using ThomasKernel = void (*)(const T*, const T*, const T*, const T*, T*, T*,
 template <typename T>
 constexpr int kThomasWidest = sizeof(T) == 4 ? 32 : 16;
 
-// an instantiation, with its attributes set once per device: dynamic
-// shared memory up to the card's opt-in limit and, on chip, the largest
-// carveout, so that a launch does not call cudaFuncSetAttribute again
-template <typename T, int K, int TC, bool ONCHIP>
-cudaError_t thomas_ready(ThomasKernel<T>* kernel) {
-  static std::atomic<uint64_t> ready{0};  // a bit per device
-  *kernel = block_thomas_kernel<T, K, TC, ONCHIP>;
+// ``kernel`` with its attributes set once per device (a bit of ``ready``
+// per device): dynamic shared memory up to the card's opt-in limit and,
+// where ``carveout``, the largest carveout, so that a launch does not call
+// cudaFuncSetAttribute again
+template <typename T>
+cudaError_t smem_ready(ThomasKernel<T> kernel, bool carveout,
+                       std::atomic<uint64_t>& ready) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
@@ -608,13 +690,21 @@ cudaError_t thomas_ready(ThomasKernel<T>* kernel) {
   int optin = 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin);
-  if (err == cudaSuccess && ONCHIP)
-    err = cudaFuncSetAttribute(*kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+  if (err == cudaSuccess && carveout)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                static_cast<int>(cudaSharedmemCarveoutMaxShared));
   if (err == cudaSuccess) ready.fetch_or(bit, std::memory_order_release);
   return err;
+}
+
+// a K3 instantiation, ready to launch; on chip with the largest carveout
+template <typename T, int K, int TC, bool ONCHIP>
+cudaError_t thomas_ready(ThomasKernel<T>* kernel) {
+  static std::atomic<uint64_t> ready{0};
+  *kernel = block_thomas_kernel<T, K, TC, ONCHIP>;
+  return smem_ready<T>(*kernel, ONCHIP, ready);
 }
 
 // only the instantiations a launch plan can take: on chip every width up
@@ -750,14 +840,31 @@ int launch_cell_transpose(bool to_cell, const void* x, void* out, int64_t rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K7 with the launch plan computed in Python: the launcher refuses a plan
+// it did not build (shared bytes exactly for ONCHIP's cp and dp, a scratch
+// exactly for the global variant, the block and the grid)
 template <typename T>
 int launch_tridiag(const void* dl, const void* d, const void* du, const void* b,
-                   void* x, void* cp, int64_t nl, int64_t C, void* stream) {
-  tridiag_kernel<T><<<grid_for(C), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+                   void* x, void* cp, int64_t nl, int64_t C, int64_t onchip,
+                   int64_t threads, int64_t smem, int64_t grid, void* stream) {
+  if (nl < 1 || nl > (int64_t(1) << 24) || C < 1 || (onchip != 0 && onchip != 1) ||
+      threads != kTriThreads || grid != (C + kTriThreads - 1) / kTriThreads ||
+      grid >= (int64_t(1) << 31) ||
+      smem != (onchip ? 2 * nl * kTriThreads * static_cast<int64_t>(sizeof(T)) : 0) ||
+      (onchip == 1) != (cp == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<uint64_t> ready{0};
+  ThomasKernel<T> kernel = tridiag_kernel<T, false>;
+  if (onchip) {
+    kernel = tridiag_kernel<T, true>;
+    const cudaError_t err = smem_ready<T>(kernel, true, ready);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(grid), kTriThreads, static_cast<size_t>(smem),
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(dl), static_cast<const T*>(d),
-      static_cast<const T*>(du), static_cast<const T*>(b),
-      static_cast<T*>(x), static_cast<T*>(cp), nl, C);
+      static_cast<const T*>(du), static_cast<const T*>(b), static_cast<T*>(x),
+      static_cast<T*>(cp), static_cast<int>(nl), C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -813,8 +920,10 @@ const char* ocean_error_string(int err) {
   }                                                                             \
   int tridiag_##SUFFIX(const void* dl, const void* d, const void* du,           \
                        const void* b, void* x, void* cp, int64_t nl, int64_t C, \
-                       void* stream) {                                          \
-    return launch_tridiag<T>(dl, d, du, b, x, cp, nl, C, stream);               \
+                       int64_t onchip, int64_t threads, int64_t smem,           \
+                       int64_t grid, void* stream) {                            \
+    return launch_tridiag<T>(dl, d, du, b, x, cp, nl, C, onchip, threads,       \
+                             smem, grid, stream);                               \
   }
 
 OCEAN_LAUNCHERS(float, f32)

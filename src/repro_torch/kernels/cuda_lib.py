@@ -53,7 +53,9 @@ _ARGTYPES = {
     # (kernels/cell_transpose.py: launch_plan)
     "soa_to_cell": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cell_to_soa": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "tridiag": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # dl, d, du, b, x, cp scratch, nl, C, then the launch plan: onchip,
+    # threads, shared-memory bytes, grid (kernels/tridiag.py: launch_plan)
+    "tridiag": [_P] * 6 + [_I] * 6 + [_P],
     # r, k, v, w, u, out, BH, T, K, V, u's rows H, then the launch plan:
     # rows, cols, block_cols, threads, tile, stages, shared-memory bytes,
     # access bytes, grid (kernels/wkv6.py: launch_plan, LAUNCH_KEYS)

@@ -1,7 +1,10 @@
 """Card-only tests of the PyTorch port: each CUDA kernel (K1-K9) against its
 plain PyTorch version on the card (K3 through both variants and every
 tile width its plan takes; K5/K6 bitwise, through both variants and from data that is not
-16-byte aligned; K8/K9 in float32 and bfloat16),
+16-byte aligned; K7 bitwise, through both variants, at ragged column counts, either
+side of the depths where its plan changes and from data that is not 16-byte
+aligned; K8/K9 in
+float32 and bfloat16),
 the wrappers' input checks, a short step of the cuda backend
 against the plain backend, and the step boundary with its dispatch counts.
 
@@ -167,7 +170,8 @@ def test_step_cuda_matches_plain(cuda):
     a = stepper.step(geom, vg, cfg, st)
     assert dict(ops.LAUNCHES) == {("solve_r", "cuda"): 2, ("solve_w", "cuda"): 2,
                                   ("block_thomas", "cuda"): 2,
-                                  ("lateral_flux", "cuda"): 4}
+                                  ("lateral_flux", "cuda"): 4,
+                                  ("tridiag", "cuda"): 4}
     b = stepper.step(geom, vg, dataclasses.replace(cfg, backend="plain"), st)
     assert dispatch.resolve(cfg.backend, cuda) is dispatch.Backend.CUDA
     for name in ("ux", "uy", "T", "S", "nu_t"):
@@ -254,20 +258,104 @@ def test_cell_transpose_launcher_refuses_other_plans(cuda, dtype):
     assert torch.equal(out, cell_transpose.soa_to_cell_plain(x))
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("nl,C", [(1, 1), (2, 130), (16, 300), (16, 1000)])
-def test_tridiag_kernel(cuda, dtype, nl, C):
-    rng = np.random.default_rng(nl * 7 + C)
+def _tridiag_args(dev, dtype, nl, C, seed, offset=0):
+    """dl, d, du, b (nl, C) on the card, shaped like GLS's diffusion systems
+    but with dl[0] and du[nl-1] not zero; ``offset`` elements past the start
+    of their buffers (1: not 16-byte aligned)."""
+    rng = np.random.default_rng(seed)
     lo, up = -5.0 * rng.random((nl, C)), -5.0 * rng.random((nl, C))
-    lo[0] = rng.normal(size=C)                       # ignored
-    up[-1] = rng.normal(size=C)                      # ignored
+    lo[0] = rng.normal(size=C)                       # multiplies a zero carry
+    up[-1] = rng.normal(size=C)                      # multiplies a zero carry
     d = 1.0 - lo - up
     d[0] = 1.0 - up[0] if nl > 1 else 1.0
     d[-1] = 1.0 - lo[-1] if nl > 1 else 1.0
     b = rng.normal(size=(nl, C))
-    args = _on(cuda, dtype, lo, d, up, b)
-    _close(tridiag.tridiag(*args), tridiag.tridiag_plain(*args), dtype)
+    out = []
+    for a in _on(dev, dtype, lo, d, up, b):
+        buf = torch.empty(a.numel() + offset, dtype=dtype, device=dev)
+        t = buf[offset:].view(a.shape)
+        t.copy_(a)
+        out.append(t)
+    return out
+
+
+# nl from 1 past the window of 4 layers (5, 16, 17: a ragged last window);
+# C ragged (130, 300, 1003) and whole blocks (128, 1024)
+TRIDIAG_SHAPES = [(1, 1), (2, 130), (4, 128), (5, 300), (16, 300), (16, 1000),
+                  (17, 1003), (33, 1024), (64, 300)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("nl,C", TRIDIAG_SHAPES)
+def test_tridiag_kernel(cuda, dtype, offset, nl, C):
+    """Both plans the launcher takes for the shape (the plan's own first,
+    the other forced through plan=) equal the plain version bitwise: the
+    kernel computes thomas_solve's operations in its order."""
+    args = _tridiag_args(cuda, dtype, nl, C, nl * 7 + C, offset)
+    ref = tridiag.tridiag_plain(*args)
+    plans = tridiag.alternatives(nl, C, dtype)
+    assert plans[0] == tridiag.launch_plan(nl, C, dtype)
+    for plan in plans:
+        out = tridiag.tridiag(*args, plan=plan)
+        assert torch.equal(out, ref), (dict(plan), float((out - ref).abs().max()))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tridiag_deep_columns(cuda, dtype):
+    """Either side of the depth where the plan turns to the global variant,
+    and of the depth past which onchip no longer fits shared memory, through
+    every plan the launcher takes, bitwise."""
+    first = next(nl for nl in range(16, 1000)
+                 if tridiag.launch_plan(nl, 257, dtype)["variant"] == "global")
+    past = next(nl for nl in range(first, 1000)
+                if len(tridiag.alternatives(nl, 257, dtype)) == 1)
+    assert tridiag.launch_plan(first - 1, 257, dtype)["variant"] == "onchip"
+    for nl in (first - 1, first, past - 1, past):
+        args = _tridiag_args(cuda, dtype, nl, 257, nl)
+        ref = tridiag.tridiag_plain(*args)
+        for plan in tridiag.alternatives(nl, 257, dtype):
+            out = tridiag.tridiag(*args, plan=plan)
+            assert torch.equal(out, ref), (nl, dict(plan))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tridiag_launcher_refuses_other_plans(cuda, dtype):
+    """The C launcher takes only a plan it builds: shared bytes exactly for
+    the onchip variant's cp and dp, a scratch exactly for the global
+    variant, 128 threads and the grid that covers C; anything else is
+    refused before a launch."""
+    nl, C = 12, 300
+    args = _tridiag_args(cuda, dtype, nl, C, 5)
+    x = torch.empty_like(args[0])
+    cp_buf = torch.empty(nl * C, dtype=dtype, device=cuda)
+    scratch = cp_buf.data_ptr()
+    onchip, glob = tridiag.alternatives(nl, C, dtype)
+
+    def launch(plan, cp=None, flag=None):
+        cuda_lib.launch("tridiag", dtype, cuda, *(a.data_ptr() for a in args),
+                        x.data_ptr(), cp, nl, C,
+                        int(plan["variant"] == "onchip") if flag is None else flag,
+                        *(plan[k] for k in tridiag.LAUNCH_KEYS))
+
+    bad = [(dict(onchip, smem=onchip["smem"] - 8), None, None),
+           (dict(onchip, smem=onchip["smem"] + 8), None, None),
+           (onchip, scratch, None),              # a scratch it does not use
+           (glob, None, None),                   # the global variant's scratch
+           (dict(glob, smem=onchip["smem"]), scratch, None),
+           (onchip, None, 2),                    # not a variant
+           (dict(onchip, grid=onchip["grid"] + 1), None, None),
+           (dict(glob, grid=onchip["grid"] - 1), scratch, None),
+           (dict(onchip, threads=256), None, None)]
+    for plan, cp, flag in bad:
+        with pytest.raises(RuntimeError):
+            launch(plan, cp, flag)
+    ref = tridiag.tridiag_plain(*args)
+    for plan, cp in ((onchip, None), (glob, scratch)):
+        launch(plan, cp)
+        assert torch.equal(x, ref), plan["variant"]
 
 
 def test_new_wrappers_reject_bad_inputs(cuda):

@@ -107,7 +107,7 @@ def test_two_steps_match_jax(case, jb, tb):
     ops.reset_launches()
     tst = _run_torch(tg, tvg, tcfg, d)
     per_step = {"solve_r": 2, "solve_w": 2, "block_thomas": 2,
-                "lateral_flux": 4 if tb == "plain" else 0}
+                "lateral_flux": 4 if tb == "plain" else 0, "tridiag": 4}
     assert dict(ops.LAUNCHES) == {(op, tb): STEPS * n
                                   for op, n in per_step.items() if n}
     _assert_match(jst, tst)
