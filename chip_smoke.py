@@ -91,6 +91,28 @@ Phases of the run with no arguments:
                 values, volume and T/S mass drift); then
                 `python -m repro_torch.obs_smoke --device cuda`, which must
                 exit 0;
+  5b. GBR     — the paper's §5 case (`repro_torch.gbr_reef`: reef
+                bathymetry from 12 to 120 m, Jackett EOS, GLS, Coriolis, an
+                M2 tide on the open boundary at x = lx, trade wind,
+                open-boundary T/S) at the resolution of the reference's
+                `gbr` dry-run cell, on rect_mesh(400, 200) of 625 x 403.1 km:
+                160,000 triangles x 20 layers, dt 45 s, float64, m_2d the
+                larger of 20 and `quickstart.external_substeps` at the
+                deepest point (logged).  3 cuda steps, each with its
+                forcing at its time, counted (K1, K2, K3 twice a step, K4
+                and K7 four times; the dispatch registry must agree); the
+                same 3 steps through the plain backend, held to TOL_PATH;
+                10 more cuda steps timed (ms/step, physical/wall, peak
+                memory, |surface vorticity| p50/p99); then, from the state
+                after the counted steps, one per-call step
+                (fused_horizontal=False, which must launch no lateral_flux)
+                and one fused step on each backend, with the time and
+                working memory of each: per-call against fused is held to
+                PER_CALL_TOL of max(|x|, 1) per field on plain, and to
+                TOL_PATH of each field's maximum on cuda, where K4 rounds
+                otherwise than lat_scatter and the step amplifies kernel
+                rounding as it does for cuda against plain (all four
+                pairs' differences are logged);
   6. model kernels — ops.wkv6 (K8) and ops.attention (K9) through `auto`
                 on CUDA tensors at the full widths of the repo's LM configs
                 (rwkv6-3b, olmo-1b, gemma2-9b local layer, hubert-xlarge),
@@ -210,6 +232,8 @@ NX, NL = 400, 16      # rect_mesh(400, 200): 160,000 triangles x 16 layers
 STEPS = 3             # counted steps of the main path, compared with plain
 TIMED_STEPS = 10      # further steps, timed for the steady ms/step
 SEED = 0              # kernel-phase inputs
+# per-call vs fused step on the plain backend, of max(|x|_inf, 1) per field
+PER_CALL_TOL = 1e-11
 ROOT = Path(__file__).resolve().parent
 
 
@@ -1114,13 +1138,16 @@ def k7_depths(nt: int, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
-def run_steps(geom, vg, cfg, st, steps):
+def run_steps(geom, vg, cfg, st, steps, forcing_at=None):
+    """`steps` steps, each timed on the host clock between synchronizations;
+    forcing_at(time), if given, supplies each step's forcing."""
     from repro_torch.core import stepper
     times = []
     for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st = stepper.step(geom, vg, cfg, st)
+        forcing = () if forcing_at is None else (forcing_at(st.time),)
+        st = stepper.step(geom, vg, cfg, st, *forcing)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return st, times
@@ -1346,6 +1373,162 @@ def phase_observed() -> dict:
     if res.returncode != 0:
         raise AssertionError(f"obs_smoke exited {res.returncode}")
     return dict(per_step=per_step)
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the paper's GBR case
+# ---------------------------------------------------------------------------
+def phase_gbr(smi: str) -> dict:
+    """STEPS float64 steps of the GBR case (`gbr_reef.full_size_setup`)
+    through the cuda backend, counted; the same steps through the plain
+    backend, which must agree within TOL_PATH; TIMED_STEPS more cuda steps
+    for ms/step; then, from the state after the counted steps, one per-call
+    step (fused_horizontal=False, no lateral-flux launch) and one fused step
+    on each backend: per-call and fused agree within PER_CALL_TOL on plain,
+    within TOL_PATH on cuda."""
+    import dataclasses
+    from repro_torch import gbr_reef
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.obs import metrics
+
+    dtype = torch.float64
+    t0 = time.perf_counter()
+    geom, vg, cfg, st0, forcing_at, m_cfl = gbr_reef.full_size_setup(
+        dtype=dtype, device="cuda")
+    torch.cuda.synchronize()
+    log(f"GBR: {geom.nt} triangles x {cfg.nl} layers "
+        f"({geom.nt * cfg.nl} prisms), {dtype}, dt={cfg.dt}s, "
+        f"m_2d={cfg.m_2d} (external_substeps at "
+        f"{gbr_reef.FULL_SIZE['depth_deep']} m: {m_cfl}; at least "
+        f"{gbr_reef.FULL_SIZE_M2D_MIN}), reef bathymetry "
+        f"{float(vg.b.min()):.2f}-{float(vg.b.max()):.2f} m, Jackett, GLS, f={cfg.coriolis_f}, tide, "
+        f"wind, open-boundary T/S; setup {time.perf_counter() - t0:.1f}s")
+    if dispatch.resolve(cfg.backend, geom.area.device) is not dispatch.Backend.CUDA:
+        raise AssertionError("backend auto did not resolve to cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    metrics.reset()
+    ops.reset_launches()
+    st_cuda, times = run_steps(geom, vg, cfg, st0, STEPS, forcing_at)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    expect = {(op, "cuda"): STEPS * n for op, n in PER_STEP.items()}
+    if launches != expect:
+        raise AssertionError(f"GBR launch counts {launches} != {expect}")
+    check_dispatches(launches)
+    log(f"GBR cuda: launches {sorted(launches.items())} in {STEPS} steps "
+        f"({ {op: n for op, n in PER_STEP.items()} } a step), equal to the "
+        f"dispatch registry")
+
+    cfg_plain = dataclasses.replace(cfg, backend="plain")
+    ops.reset_launches()
+    st_plain, times_plain = run_steps(geom, vg, cfg_plain, st0, STEPS,
+                                      forcing_at)
+    expect = {(op, "plain"): STEPS * n for op, n in PER_STEP.items()}
+    if dict(ops.LAUNCHES) != expect:
+        raise AssertionError(f"GBR plain launch counts {dict(ops.LAUNCHES)} "
+                             f"!= {expect}")
+    diffs = compare_states(st_cuda, st_plain, dtype)
+    umax = float(st_cuda.ux.abs().max())
+    if not umax > 0.0:
+        raise AssertionError("GBR: no flow developed")
+    short = lambda d: {k: float(f"{v:.3e}") for k, v in d.items()}
+    log(f"GBR plain: step times {[round(t * 1e3, 2) for t in times_plain]} "
+        f"ms; cuda vs plain {short(diffs)} (held to {TOL_PATH[dtype]}); "
+        f"max|u| {umax:.4e}")
+
+    st_end, steady = run_steps(geom, vg, cfg, st_cuda, TIMED_STEPS, forcing_at)
+    for name, get in FIELDS.items():
+        if not bool(torch.isfinite(get(st_end)).all()):
+            raise AssertionError(f"GBR: non-finite {name} after "
+                                 f"{STEPS + TIMED_STEPS} steps")
+    vort = gbr_reef.surface_vorticity(geom, st_end).abs().cpu().numpy()
+    ms = float(np.mean(steady)) * 1e3
+    res = dict(m_2d=cfg.m_2d, ms_per_step=ms, ms_min=min(steady) * 1e3,
+               ms_max=max(steady) * 1e3, first_step_ms=times[0] * 1e3,
+               physical_over_wall=cfg.dt / (ms / 1e3), peak_bytes=peak,
+               rel_diff_vs_plain=diffs, launches=launches,
+               vort_p50=float(np.percentile(vort, 50)),
+               vort_p99=float(np.percentile(vort, 99)))
+    log(f"GBR cuda float64: counted steps {[round(t * 1e3, 2) for t in times]} "
+        f"ms; {TIMED_STEPS} steady steps {[round(t * 1e3, 2) for t in steady]} "
+        f"ms: mean {ms:.2f} (min {res['ms_min']:.2f}, max {res['ms_max']:.2f}) "
+        f"ms/step; physical/wall {res['physical_over_wall']:.2f}; peak memory "
+        f"{peak / 2**30:.3f} GiB ({peak} bytes); max|u| "
+        f"{float(st_end.ux.abs().max()):.4e}; |vorticity| p50 "
+        f"{res['vort_p50']:.3e} p99 {res['vort_p99']:.3e} 1/s; on {smi}")
+
+    # one step of each path on each backend, from the state after the
+    # counted steps: per-call against fused is held on the plain backend to
+    # PER_CALL_TOL of max(|x|, 1); on the cuda backend, where K4 rounds
+    # otherwise than lat_scatter, to TOL_PATH of each field's own maximum
+    # (as cuda against plain), and both measures are logged
+    one = {}
+    for bk in ("plain", "cuda"):
+        for fused in (False, True):
+            c = dataclasses.replace(cfg, backend=bk, fused_horizontal=fused)
+            torch.cuda.reset_peak_memory_stats()
+            live = torch.cuda.memory_allocated()
+            ops.reset_launches()
+            st1, t1 = run_steps(geom, vg, c, st_cuda, 1, forcing_at)
+            # the step's working memory: its peak above what was live
+            one[(bk, fused)] = (st1, dict(ops.LAUNCHES), t1[0] * 1e3,
+                                torch.cuda.max_memory_allocated() - live)
+    for bk in ("plain", "cuda"):
+        got = one[(bk, False)][1]
+        expect = {(op, bk): n for op, n in PER_STEP.items()
+                  if op != "lateral_flux"}
+        if got != expect:
+            raise AssertionError(f"GBR per-call {bk} launches {got} != {expect}")
+
+    def diff(a, b):
+        out = {}
+        for name, get in FIELDS.items():
+            x, y = get(one[a][0]), get(one[b][0])
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"GBR {a}: non-finite {name}")
+            d = float((x - y).abs().max())
+            amax = float(y.abs().max())
+            out[name] = (d / max(amax, 1.0), d / amax if amax > 0 else d)
+        return out
+    pairs = {"plain per-call vs fused": (("plain", False), ("plain", True)),
+             "cuda per-call vs fused": (("cuda", False), ("cuda", True)),
+             "per-call cuda vs plain": (("cuda", False), ("plain", False)),
+             "fused cuda vs plain": (("cuda", True), ("plain", True))}
+    diffs1 = {label: diff(*ab) for label, ab in pairs.items()}
+    for label, d in diffs1.items():
+        met = all(v[0] <= PER_CALL_TOL for v in d.values())
+        log(f"GBR one step, {label}: of max(|x|, 1) "
+            f"{short({k: v[0] for k, v in d.items()})}; of each field's max "
+            f"{short({k: v[1] for k, v in d.items()})}; within "
+            f"{PER_CALL_TOL} of max(|x|, 1): {'yes' if met else 'NO'}")
+    for name, (rel1, _) in diffs1["plain per-call vs fused"].items():
+        if not rel1 <= PER_CALL_TOL:
+            raise AssertionError(f"GBR {name}: plain per-call vs fused "
+                                 f"{rel1:.3e} > {PER_CALL_TOL}")
+    for name, (_, rel) in diffs1["cuda per-call vs fused"].items():
+        if not rel <= TOL_PATH[dtype]:
+            raise AssertionError(f"GBR {name}: cuda per-call vs fused "
+                                 f"{rel:.3e} > {TOL_PATH[dtype]}")
+    res.update(one_step_diff={k: {n: v[0] for n, v in d.items()}
+                              for k, d in diffs1.items()},
+               per_call_launches=one[("cuda", False)][1],
+               per_call_ms=one[("cuda", False)][2],
+               fused_ms=one[("cuda", True)][2],
+               per_call_work_bytes=one[("cuda", False)][3],
+               fused_work_bytes=one[("cuda", True)][3])
+    log(f"GBR per-call cuda step: launches "
+        f"{sorted(res['per_call_launches'].items())} (no lateral_flux); "
+        f"{res['per_call_ms']:.2f} ms, peak above the live tensors "
+        f"{res['per_call_work_bytes'] / 2**30:.3f} GiB; fused cuda step "
+        f"{res['fused_ms']:.2f} ms, {res['fused_work_bytes'] / 2**30:.3f} "
+        f"GiB; plain per-call / fused {one[('plain', False)][2]:.2f} / "
+        f"{one[('plain', True)][2]:.2f} ms, "
+        f"{one[('plain', False)][3] / 2**30:.3f} / "
+        f"{one[('plain', True)][3] / 2**30:.3f} GiB")
+    del geom, vg, st0, st_cuda, st_plain, st_end, one
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1660,6 +1843,9 @@ def main(argv=None) -> int:
     # 5. the observed step, float64
     phase_observed()
 
+    # 5b. the paper's GBR case, float64
+    gbr = phase_gbr(smi)
+
     # 6. the model kernels at the LM configs' widths
     model = phase_model(ptxas)
 
@@ -1676,6 +1862,9 @@ def main(argv=None) -> int:
             ms_f64=r64["ms"], bound_ms_f64=r64["bound_ms"],
             plain_ms_f64=r64["plain_ms"], library_ms_f64=r64["library_ms"],
             max_abs_err_f64=r64["max_abs_err"]))
+        if name in PER_STEP:
+            # the launches of phase 5b's 3 counted GBR steps
+            table[-1]["launches_gbr"] = gbr["launches"][(name, "cuda")]
         if name == "block_thomas":
             # the plan's tile, the narrower ones and the global variant
             # at the main path's shape, and the deep case

@@ -1,10 +1,12 @@
-"""Carry geometry, vertical grid and model state across frameworks as plain
-dicts of numpy arrays, keyed by the field names of the JAX package's
-dataclasses (`Geom2D`, `VGrid`, `OceanState` with its nested `ext`).
+"""Carry geometry, vertical grid, model state and forcing across frameworks
+as plain dicts of numpy arrays, keyed by the field names of the JAX
+package's dataclasses (`Geom2D`, `VGrid`, `OceanState` with its nested
+`ext`, `Forcing3D` with its nested `forcing2d`).
 
     geom = geom_from_numpy({f: np.asarray(getattr(jgeom, f)) for f in ...})
     st = state_from_numpy(d, device="cpu")
     d = state_to_numpy(st)
+    forcing = forcing_from_numpy({"tau_x": ..., "forcing2d": {...}})
 """
 from __future__ import annotations
 
@@ -13,10 +15,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from .core.dg2d import State2D
+from .core.dg2d import Forcing2D, State2D
 from .core.extrusion import VGrid
 from .core.geometry import Geom2D
-from .core.stepper import OceanState
+from .core.stepper import Forcing3D, OceanState
 from .kernels.dispatch import default_device
 
 _INDEX_FIELDS = ("ext_tri", "ext_na", "ext_nb")
@@ -59,3 +61,18 @@ def state_to_numpy(st: OceanState) -> dict:
          if f.name != "ext"}
     d["ext"] = {k: n(getattr(st.ext, k)) for k in ("eta", "qx", "qy")}
     return d
+
+
+def forcing_from_numpy(d: dict, device=None) -> Forcing3D:
+    """Forcing3D from a dict of its fields, with ``d["forcing2d"]`` a dict
+    of the Forcing2D fields; a field that is missing or None stays None
+    (its term is off)."""
+    device = default_device(device)
+
+    def fields(cls, src):
+        return {f.name: None if src.get(f.name) is None
+                else _tensor(src[f.name], device)
+                for f in dataclasses.fields(cls) if f.name != "forcing2d"}
+    return Forcing3D(forcing2d=Forcing2D(**fields(Forcing2D,
+                                                  d.get("forcing2d") or {})),
+                     **fields(Forcing3D, d))

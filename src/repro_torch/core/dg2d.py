@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from . import geometry as G
@@ -162,6 +163,14 @@ def standalone_extra_rhs(geom: G.Geom2D, b: torch.Tensor, st: State2D,
     return State2D(torch.zeros_like(st.eta), rqx, rqy)
 
 
+def ssprk3_step(rhs_fn: Callable[[State2D], State2D], st: State2D,
+                dt: float) -> State2D:
+    """Shu-Osher SSPRK(3,3) — the paper's 3-stage explicit RK external mode."""
+    k1 = st + dt * rhs_fn(st)
+    k2 = 0.75 * st + 0.25 * (k1 + dt * rhs_fn(k1))
+    return (1.0 / 3.0) * st + (2.0 / 3.0) * (k2 + dt * rhs_fn(k2))
+
+
 class ExternalResult(NamedTuple):
     state: State2D
     q_bar_x: torch.Tensor    # (3, nt) effective time-averaged transport
@@ -229,3 +238,12 @@ def run_external(geom: G.Geom2D, b: torch.Tensor, st0: State2D, dt: float,
     f2d_y = (s.qy - st0.qy) / dt - G.minv_apply(geom, f3d2d_y)
     mean = lambda xs: torch.stack(xs).mean(dim=0)
     return ExternalResult(s, mean(qxs), mean(qys), f2d_x, f2d_y, mean(efs))
+
+
+def cfl_dt(geom: G.Geom2D, b: torch.Tensor, cfl: float = 0.25) -> float:
+    """Explicit gravity-wave CFL time step estimate (static, numpy-side):
+    h = sqrt(area), with the deepest node of each triangle."""
+    h = np.sqrt(geom.area.detach().cpu().numpy())
+    c = np.sqrt(G.G_GRAV * np.maximum(b.detach().cpu().numpy().max(axis=0),
+                                      0.05))
+    return float((cfl * h / c).min())

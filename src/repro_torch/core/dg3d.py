@@ -1,11 +1,14 @@
-"""3D DG operators on the prismatic mesh (paper SI §S2–S3), fused path.
+"""3D DG operators on the prismatic mesh (paper SI §S2–S3).
 
-Provides what the fused stepper calls:
+Provides what the stepper calls, on the fused path and on the per-call path
+(`fused_horizontal=False`, the equivalence oracle of the fused one):
   * prism quadrature helpers (zeta interpolation, lateral-face scatter),
   * the nodal neighbour gather of a field (`edge_ext_nodal6`) with its
-    boundary fixups, and the per-field-set `FieldStates`,
-  * the horizontal advection (lateral term through `ops.lateral_flux_term`)
-    and diffusion terms of F_3D^h / eq. 20,
+    boundary fixups, or the qp-level exterior states (`lat_states`,
+    `reflect_pair`), and the per-field-set `FieldStates`,
+  * the horizontal advection (lateral term through `ops.lateral_flux_term`
+    when the FieldStates carry the nodal gather, else `lat_scatter`) and
+    diffusion terms of F_3D^h / eq. 20 (`horizontal_advdiff`: both),
   * the RHS of the hydrostatic pressure gradient r (SI eq. 11) and of the
     modified continuity equation for w-tilde (SI eq. 13),
   * the consistent 3D transport q-bar (paper eq. 18) and the lateral flux
@@ -14,10 +17,11 @@ Provides what the fused stepper calls:
   * Smagorinsky / Okubo horizontal mixing coefficients.
 
 The per-stage caches (`EdgeCache`, `TransportCache`) come from
-`core/horizontal.py`.
+`core/horizontal.py`; without them every function recomputes what it needs.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -128,6 +132,38 @@ def iso_grad(geom: G.Geom2D, f_qz: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Boundary ghosts for 3D lateral faces (qp level)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class LateralBC:
+    """How to build ghost values on WALL / OPEN boundary faces."""
+    reflect: bool = False                       # True for velocity components
+    open_value: Optional[torch.Tensor] = None   # (..., nl, 6, nt) forced field
+
+
+def lat_states(geom: G.Geom2D, f: torch.Tensor, bc: LateralBC = LateralBC()):
+    """(int, ext) values at lateral qps with BCs applied.
+
+    For vector fields pass components separately and use `reflect_pair`."""
+    fi = lat_interp(f)
+    fe = lat_interp_ext(geom, f)
+    if bc.open_value is not None:
+        openb = geom.openb[None, :, None, :]
+        fe = fe * (1 - openb) + lat_interp(bc.open_value) * openb
+    return fi, fe
+
+
+def reflect_pair(geom: G.Geom2D, uxe: torch.Tensor, uye: torch.Tensor):
+    """Free-slip wall reflection of exterior velocity values at lateral qps
+    (gathered ext == int on boundaries, so reflecting gives the ghost)."""
+    nx = geom.edge_nx[:, None, :]
+    ny = geom.edge_ny[:, None, :]
+    wall = geom.wall[None, :, None, :]
+    un = uxe * nx + uye * ny
+    return (uxe - 2 * wall * un * nx, uye - 2 * wall * un * ny)
+
+
+# ---------------------------------------------------------------------------
 # Consistent 3D transport (paper eq. 18 + §2.5)
 # ---------------------------------------------------------------------------
 def transport_from_velocity(vge: VertGeom, ux: torch.Tensor,
@@ -156,24 +192,33 @@ class LateralFlux(NamedTuple):
     upwind: torch.Tensor    # same shape, 1.0 where interior side is upwind
 
 
-def lateral_flux_speed(geom: G.Geom2D, qx: torch.Tensor, qy: torch.Tensor,
-                       cache, fbar_edge: Optional[torch.Tensor] = None,
-                       qbar2d: Optional[tuple] = None) -> LateralFlux:
-    """Normal advective flux speed at lateral qps, from the per-stage
-    EdgeCache (core/horizontal.py).
+def lateral_flux_speed(geom: G.Geom2D, vge: VertGeom, vg: VGrid,
+                       qx: torch.Tensor, qy: torch.Tensor,
+                       eta: torch.Tensor, b2d: torch.Tensor,
+                       fbar_edge: Optional[torch.Tensor] = None,
+                       qbar2d: Optional[tuple] = None,
+                       h_min: float = 0.05, cache=None) -> LateralFlux:
+    """Normal advective flux speed at lateral qps.
 
     paper form:   n.{q} + {Jz/H} c+ [[eta]]          (fbar_edge=None)
     exact form:   n.{q} + {Jz/H} (Fbar - n.{Qbar})   (fbar_edge given)
-    Wall faces: reflected ghost -> n.{q} = 0, [[eta]]=0 -> speed 0."""
+    Wall faces: reflected ghost -> n.{q} = 0, [[eta]]=0 -> speed 0.
+
+    cache: the per-stage EdgeCache (core/horizontal.py) supplying {Jz/H}
+    and the eta/H edge states; without it they are computed here from vge,
+    eta and b2d, and vg is unused."""
     nx = geom.edge_nx[:, None, :]
     ny = geom.edge_ny[:, None, :]
     qxi, qyi = lat_interp(qx), lat_interp(qy)
-    qxe, qye = lat_interp_ext(geom, qx), lat_interp_ext(geom, qy)
-    wall = geom.wall[None, :, None, :]
-    un = qxe * nx + qye * ny
-    qxe, qye = qxe - 2 * wall * un * nx, qye - 2 * wall * un * ny
+    qxe, qye = reflect_pair(geom, lat_interp_ext(geom, qx),
+                            lat_interp_ext(geom, qy))
     mean_qn = 0.5 * ((qxi + qxe) * nx + (qyi + qye) * ny)
-    alpha = cache.alpha[None, None]
+    if cache is not None:
+        alpha = cache.alpha[None, None]
+    else:
+        a = vge.jz / torch.clamp(vge.H, min=h_min)
+        alpha = 0.5 * (G.edge_interp(a) + G.edge_interp_ext(geom, a))
+        alpha = alpha[None, None]
 
     if fbar_edge is not None:
         Qbx, Qby = qbar2d
@@ -186,9 +231,16 @@ def lateral_flux_speed(geom: G.Geom2D, qx: torch.Tensor, qy: torch.Tensor,
         mean_Qn = 0.5 * ((Qxi + Qxe) * nx + (Qyi + Qye) * ny)
         speed = mean_qn + alpha * (fbar_edge - mean_Qn)[None, None]
     else:
-        c_plus = torch.sqrt(G.G_GRAV * torch.maximum(cache.H_int, cache.H_ext))
-        jump_eta = (0.5 * (cache.eta_int - cache.eta_ext)
-                    * (1.0 - geom.wall[:, None, :]))
+        if cache is not None:
+            # vge.H == max(eta + b2d, h_min) (layer_geometry, same h_min)
+            Hi, He = cache.H_int, cache.H_ext
+            ei, ee = cache.eta_int, cache.eta_ext
+        else:
+            H2 = torch.clamp(eta + b2d, min=h_min)
+            Hi, He = G.edge_interp(H2), G.edge_interp_ext(geom, H2)
+            ei, ee = G.edge_interp(eta), G.edge_interp_ext(geom, eta)
+        c_plus = torch.sqrt(G.G_GRAV * torch.maximum(Hi, He))
+        jump_eta = 0.5 * (ei - ee) * (1.0 - geom.wall[:, None, :])
         speed = mean_qn + alpha * (c_plus * jump_eta)[None, None]
     return LateralFlux(speed=speed, upwind=(speed > 0).to(speed.dtype))
 
@@ -202,34 +254,50 @@ class FieldStates(NamedTuple):
     fqq: torch.Tensor       # (k, nl, 2qz, 3qh, nt)    vol-quad values
     fi: torch.Tensor        # (k, nl, 2qz, 3, 2qs, nt) interior lateral states
     fe: torch.Tensor        # same, exterior (post-BC)
-    fx: torch.Tensor        # (k, nl, 3, 2, 2, nt) nodal ext gather (post-BC),
-                            # the input of the lateral-flux kernel
+    fx: Optional[torch.Tensor]  # (k, nl, 3, 2, 2, nt) nodal ext gather
+                            # (post-BC), the input of the lateral-flux
+                            # kernel; None on the per-call path
     gradf: torch.Tensor     # (k, nl, 2qz, 2, nt)      iso-zeta gradient
     gno: torch.Tensor       # (k, nl, 2qz, 3e, nt)     interior normal gradient
     gradf_e: torch.Tensor   # same, exterior
 
 
 def field_states(geom: G.Geom2D, f: torch.Tensor, bc_reflect: bool = False,
-                 open_values: Optional[torch.Tensor] = None) -> FieldStates:
-    """Build the FieldStates of (k, nl, 6, nt) fields from ONE neighbour
-    gather at nodal width, with the BC fixups applied nodally (they are
-    linear).
+                 open_values: Optional[torch.Tensor] = None,
+                 nodal: bool = True) -> FieldStates:
+    """Build the FieldStates of (k, nl, 6, nt) fields.
 
     bc_reflect: the first two components are the horizontal velocity vector
-    (free-slip wall reflection of the exterior states)."""
+    (free-slip wall reflection of the exterior states).
+
+    nodal=True (fused path) builds the exterior states from ONE neighbour
+    gather at nodal width with the BC fixups applied nodally (they are
+    linear) and keeps the gather (`fx`) for the lateral-flux kernel.
+    nodal=False builds them at the lateral qps (`fx` is None): the per-call
+    path."""
     k = f.shape[0]
+    if bc_reflect and k < 2:
+        raise ValueError("bc_reflect needs the two velocity components")
     fq = zinterp(f)
     fqq = G.vol_interp(fq)
     fi = lat_interp(f)
-    fx = edge_ext_nodal6(geom, f)
-    if bc_reflect:
-        if k < 2:
-            raise ValueError("bc_reflect needs the two velocity components")
-        fx = torch.cat([reflect_nodal(geom, fx[:2]), fx[2:]])
-    if open_values is not None:
-        openb = geom.openb[:, None, None, :]
-        fx = fx * (1 - openb) + own_nodal6(open_values) * openb
-    fe = lat_ext_from_nodal(fx)
+    if nodal:
+        fx = edge_ext_nodal6(geom, f)
+        if bc_reflect:
+            fx = torch.cat([reflect_nodal(geom, fx[:2]), fx[2:]])
+        if open_values is not None:
+            openb = geom.openb[:, None, None, :]
+            fx = fx * (1 - openb) + own_nodal6(open_values) * openb
+        fe = lat_ext_from_nodal(fx)
+    else:
+        fx = None
+        fe = lat_interp_ext(geom, f)
+        if bc_reflect:
+            fe = torch.cat([torch.stack(reflect_pair(geom, fe[0], fe[1])),
+                            fe[2:]])
+        if open_values is not None:
+            openb = geom.openb[None, :, None, :]
+            fe = fe * (1 - openb) + lat_interp(open_values) * openb
     gradf = iso_grad(geom, fq)
     gno = (gradf[..., 0:1, :] * geom.edge_nx
            + gradf[..., 1:2, :] * geom.edge_ny)       # (k, nl, 2qz, 3e, nt)
@@ -238,26 +306,61 @@ def field_states(geom: G.Geom2D, f: torch.Tensor, bc_reflect: bool = False,
                        gradf=gradf, gno=gno, gradf_e=gradf_e)
 
 
+def _vol_transport(qx: torch.Tensor, qy: torch.Tensor, tcache):
+    """The transport at the volume qps, (nl, 2qz, 3qh, nt) each: from the
+    TransportCache, or interpolated here."""
+    if tcache is not None:
+        return tcache.qxq, tcache.qyq
+    return G.vol_interp(zinterp(qx)), G.vol_interp(zinterp(qy))
+
+
+def horizontal_advdiff(geom: G.Geom2D, vge: VertGeom, nl: int,
+                       f: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor,
+                       flux: LateralFlux, nu_h: torch.Tensor,
+                       bc_reflect: bool = False,
+                       open_values: Optional[torch.Tensor] = None,
+                       cache=None, tcache=None, fcache=None,
+                       backend=None) -> torch.Tensor:
+    """Horizontal advection + along-sigma diffusion terms of F_3D^h / eq. 20:
+    (k, nl, 6, nt) RHS contributions (not mass-inverted).
+
+    cache / tcache / fcache (core/horizontal.py) supply the per-stage
+    interpolations; when fcache is given, bc_reflect/open_values are ignored
+    (already baked in).  Without caches everything is recomputed per call
+    at the lateral qps: the per-call path."""
+    if fcache is None:
+        fcache = field_states(geom, f, bc_reflect=bc_reflect,
+                              open_values=open_values,
+                              nodal=cache is not None)
+    adv = horizontal_advection(geom, vge, nl, f, qx, qy, flux, tcache,
+                               fcache, backend=backend)
+    return adv + horizontal_diffusion(geom, vge, nl, f, nu_h, cache, fcache)
+
+
 def horizontal_advection(geom: G.Geom2D, vge: VertGeom, nl: int,
                          f: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor,
                          flux: LateralFlux, tcache, fcache: FieldStates,
                          backend=None) -> torch.Tensor:
     """Flux-dependent half of the horizontal RHS: volume advection +
-    lateral upwind flux, (k, nl, 6, nt).
+    lateral upwind flux, (k, nl, 6, nt); without the TransportCache the
+    vol-quad transport is interpolated here.
 
     The lateral term runs through the lateral-flux kernel
-    (`ops.lateral_flux_term`) on the plain and cuda backends; the ref
-    backend scatters the qp-level upwind states (`lat_scatter`)."""
+    (`ops.lateral_flux_term`) on the plain and cuda backends when the
+    FieldStates carry the nodal gather; the ref backend, and every backend
+    on the per-call path (``fcache.fx is None``), scatters the qp-level
+    upwind states (`lat_scatter`)."""
+    qxq, qyq = _vol_transport(qx, qy, tcache)
     # --- volume advection: <Jh f (q . phi_z grad(phi_h))> -------------------
-    gx = (fcache.fqq * tcache.qxq).sum(dim=-2)         # (k, nl, 2qz, nt)
-    gy = (fcache.fqq * tcache.qyq).sum(dim=-2)
+    gx = (fcache.fqq * qxq).sum(dim=-2)                # (k, nl, 2qz, nt)
+    gy = (fcache.fqq * qyq).sum(dim=-2)
     sx = gx[..., None, :] * geom.dphi[:, 0, :]         # (k, nl, 2qz, 3n, nt)
     sy = gy[..., None, :] * geom.dphi[:, 1, :]
     out = _zsplit((sx + sy) * (geom.area / 3.0))       # (k, nl, 6, nt)
 
     # --- lateral upwind advective flux --------------------------------------
     bk = dispatch.resolve(backend, f.device)
-    if bk is dispatch.Backend.REF:
+    if fcache.fx is None or bk is dispatch.Backend.REF:
         f_up = torch.where(flux.upwind > 0.5, fcache.fi, fcache.fe)
         lat_adv = lat_scatter(geom, f_up * flux.speed[None])
     else:
@@ -273,11 +376,21 @@ def horizontal_diffusion(geom: G.Geom2D, vge: VertGeom, nl: int,
     """Along-sigma diffusion half of the horizontal RHS (SIP form).
 
     Depends only on (f, nu_h, jz) — not on the transport or flux — so the
-    fused stepper evaluates it once per field set per stage."""
+    fused stepper evaluates it once per field set per stage.  Without the
+    EdgeCache the jz interpolations and the penalty coefficient are
+    computed here."""
+    if cache is not None:
+        jz_q, jz_int, jz_ext = cache.jz_q, cache.jz_int, cache.jz_ext
+        sig, jz_mean = cache.sigma3, cache.jz_mean
+    else:
+        jz_q = G.vol_interp(vge.jz)
+        jz_int = G.edge_interp(vge.jz)                 # (3, 2qs, nt)
+        jz_ext = G.edge_interp_ext(geom, vge.jz)
+        sig, jz_mean = sigma3_lateral(geom), 0.5 * (jz_int + jz_ext)
     # volume: -<Jh Jz nu (grad~ phi_i . grad~ f) phi_z^a>
     nu_q = G.vol_interp(zinterp(nu_h))                 # (nl, 2qz, 3qh, nt)
     gradf = fcache.gradf                               # (k, nl, 2qz, 2, nt)
-    coef = (nu_q * cache.jz_q).sum(dim=-2) / 3.0 * geom.area  # (nl, 2qz, nt)
+    coef = (nu_q * jz_q).sum(dim=-2) / 3.0 * geom.area  # (nl, 2qz, nt)
     nu_int = lat_interp(nu_h)[None]                    # (1, nl, 2qz, 3, 2qs, nt)
     nu_ext = lat_interp_ext(geom, nu_h)[None]
     dvol = (gradf[..., 0:1, :] * geom.dphi[:, 0, :]
@@ -285,8 +398,8 @@ def horizontal_diffusion(geom: G.Geom2D, vge: VertGeom, nl: int,
     out = -_zsplit(dvol)
 
     # lateral consistency: + <<phi {Jz nu n.grad~ f} Jl>> (interior faces)
-    flux_int = fcache.gno[..., None, :] * nu_int * cache.jz_int
-    flux_ext = fcache.gradf_e[..., None, :] * nu_ext * cache.jz_ext
+    flux_int = fcache.gno[..., None, :] * nu_int * jz_int
+    flux_ext = fcache.gradf_e[..., None, :] * nu_ext * jz_ext
     interior = geom.interior[None, :, None, :]
     mean_flux = 0.5 * (flux_int + flux_ext)
 
@@ -294,7 +407,7 @@ def horizontal_diffusion(geom: G.Geom2D, vge: VertGeom, nl: int,
     # assembled with the consistency term in ONE edge scatter
     numean = 0.5 * (nu_int + nu_ext)
     jumpf = 0.5 * (fcache.fi - fcache.fe)
-    pen = cache.sigma3[:, None, :] * numean * cache.jz_mean * jumpf
+    pen = sig[:, None, :] * numean * jz_mean * jumpf
     return out + lat_scatter(geom, (mean_flux - pen) * interior)
 
 
@@ -346,15 +459,22 @@ def okubo_kappa(geom: G.Geom2D, nl: int, coef: float = 2.055e-4,
 # Pressure gradient RHS (SI eq. 11) + surface value
 # ---------------------------------------------------------------------------
 def pressure_gradient_rhs(geom: G.Geom2D, vg: VGrid, vge: VertGeom,
-                          rho_p: torch.Tensor, cache) -> tuple:
+                          rho_p: torch.Tensor, cache=None) -> tuple:
     """RHS of D_vu r = F and the surface Dirichlet value r_s.
 
-    rho_p: (nl, 6, nt) density anomaly. Returns (F (2, nl, 6, nt), r_s (2,3,nt))."""
+    rho_p: (nl, 6, nt) density anomaly. Returns (F (2, nl, 6, nt), r_s (2,3,nt)).
+    cache: the per-stage EdgeCache supplying the jz interpolations."""
     g = G.G_GRAV
     nl = vg.nl
+    if cache is not None:
+        jz_q, jz_mean = cache.jz_q, cache.jz_mean
+    else:
+        jz_q = G.vol_interp(vge.jz)
+        jz_mean = 0.5 * (G.edge_interp(vge.jz)
+                         + G.edge_interp_ext(geom, vge.jz))
     # volume: +g <phi grad~_h rho' Jh Jz>
     grho = iso_grad(geom, zinterp(rho_p))               # (nl, 2qz, 2, nt)
-    intg = g * grho.movedim(2, 0)[..., None, :] * cache.jz_q  # (2,nl,2qz,3qh,nt)
+    intg = g * grho.movedim(2, 0)[..., None, :] * jz_q  # (2,nl,2qz,3qh,nt)
     F = vol3d_scatter(geom, intg)                       # (2, nl, 6, nt)
 
     # interior horizontal interfaces k=1..nl-1:
@@ -371,7 +491,7 @@ def pressure_gradient_rhs(geom: G.Geom2D, vg: VGrid, vge: VertGeom,
     jumpl = (0.5 * (lat_interp(rho_p) - lat_interp_ext(geom, rho_p))
              * geom.interior[None, :, None, :])
     n_ = torch.stack([geom.edge_nx, geom.edge_ny])      # (2, 3, nt)
-    intg_l = (-g) * jumpl[None] * cache.jz_mean * n_[:, None, None, :, None, :]
+    intg_l = (-g) * jumpl[None] * jz_mean * n_[:, None, None, :, None, :]
     F = F + lat_scatter(geom, intg_l)
 
     # surface value: r_s = g rho'(eta) grad_h(eta)
@@ -387,12 +507,14 @@ def pressure_gradient_rhs(geom: G.Geom2D, vg: VGrid, vge: VertGeom,
 # ---------------------------------------------------------------------------
 def continuity_rhs(geom: G.Geom2D, vge: VertGeom, nl: int,
                    qx: torch.Tensor, qy: torch.Tensor,
-                   flux: LateralFlux, tcache) -> torch.Tensor:
+                   flux: LateralFlux, tcache=None) -> torch.Tensor:
     """RHS of D_vd w~ = F: volume transport divergence + lateral fluxes,
     with the SAME LateralFlux as the tracer/momentum advection so the
-    discrete budgets telescope exactly."""
+    discrete budgets telescope exactly.  tcache reuses the vol-quad
+    transport shared with the advection."""
+    qxq, qyq = _vol_transport(qx, qy, tcache)
     # dphi is constant per triangle, so the qh sum factorises
-    sx = tcache.qxq.sum(dim=-2)[..., None, :] * geom.dphi[:, 0, :]
-    sy = tcache.qyq.sum(dim=-2)[..., None, :] * geom.dphi[:, 1, :]
+    sx = qxq.sum(dim=-2)[..., None, :] * geom.dphi[:, 0, :]
+    sy = qyq.sum(dim=-2)[..., None, :] * geom.dphi[:, 1, :]
     F = _zsplit((sx + sy) * (geom.area / 3.0))        # (nl, 6, nt)
     return F - lat_scatter(geom, flux.speed)

@@ -175,6 +175,11 @@ def minv_apply(geom: Geom2D, r: torch.Tensor) -> torch.Tensor:
     return (12.0 / geom.area) * (r - 0.25 * s)
 
 
+def lumped_mass(geom: Geom2D) -> torch.Tensor:
+    """Row-sum lumped mass (A/3 per node): (1, nt) broadcastable."""
+    return (geom.area / 3.0)[None, :]
+
+
 # --- edge quadrature ---------------------------------------------------------
 def pick_nodes(f: torch.Tensor, nodes) -> torch.Tensor:
     """f[..., nodes, :] for a short static node list, by python-int slices."""

@@ -71,13 +71,16 @@ def stage_cache(geom: G.Geom2D, vge: VertGeom,
         sigma3=dg3d.sigma3_lateral(geom))
 
 
-def transport_cache(geom: G.Geom2D, cache: EdgeCache,
+def transport_cache(geom: G.Geom2D, vge: VertGeom, vg, cache: EdgeCache,
                     qx: torch.Tensor, qy: torch.Tensor,
-                    fbar_edge=None, qbar2d=None) -> TransportCache:
+                    fbar_edge=None, qbar2d=None,
+                    h_min: float = 0.05) -> TransportCache:
     """Flux speeds + vol-quad interpolation of one transport, sharing the
-    stage's EdgeCache (which fixes the free surface and column height)."""
-    flux = dg3d.lateral_flux_speed(geom, qx, qy, cache, fbar_edge=fbar_edge,
-                                   qbar2d=qbar2d)
+    stage's EdgeCache.  The free surface and bathymetry are taken from vge /
+    vg, from which the cached eta/H edge states were built."""
+    flux = dg3d.lateral_flux_speed(
+        geom, vge, vg, qx, qy, vge.eta, vg.b, fbar_edge=fbar_edge,
+        qbar2d=qbar2d, h_min=h_min, cache=cache)
     return TransportCache(qxq=G.vol_interp(dg3d.zinterp(qx)),
                           qyq=G.vol_interp(dg3d.zinterp(qy)), flux=flux)
 

@@ -245,6 +245,10 @@ def channel_mesh(nx: int, ny: int, lx: float, ly: float, jitter: float = 0.15,
 # ---------------------------------------------------------------------------
 # Bathymetries (positive depth below reference level)
 # ---------------------------------------------------------------------------
+def flat_bathymetry(depth: float) -> Callable[[np.ndarray], np.ndarray]:
+    return lambda p: np.full(p.shape[0], depth)
+
+
 def shelf_bathymetry(h_shallow: float, h_deep: float, lx: float) -> Callable:
     """Linear shelf from shallow (x=0, 'coast') to deep (x=lx, 'open ocean')."""
     def f(p):
@@ -252,3 +256,20 @@ def shelf_bathymetry(h_shallow: float, h_deep: float, lx: float) -> Callable:
         return h_shallow + (h_deep - h_shallow) * s
     return f
 
+
+def reef_bathymetry(h_shallow: float, h_deep: float, lx: float, ly: float,
+                    n_reefs: int = 40, seed: int = 3) -> Callable:
+    """Reef-belt bathymetry (GBR-like §5): shelf + gaussian reef bumps."""
+    rng = np.random.default_rng(seed)
+    cx = rng.uniform(0.15 * lx, 0.6 * lx, n_reefs)
+    cy = rng.uniform(0.05 * ly, 0.95 * ly, n_reefs)
+    rr = rng.uniform(0.01, 0.03, n_reefs) * min(lx, ly)
+
+    def f(p):
+        s = np.clip(p[:, 0] / lx, 0, 1)
+        h = h_shallow + (h_deep - h_shallow) * s ** 2
+        for k in range(n_reefs):
+            d2 = (p[:, 0] - cx[k]) ** 2 + (p[:, 1] - cy[k]) ** 2
+            h = h - (h - h_shallow * 0.3) * 0.8 * np.exp(-d2 / (2 * rr[k] ** 2))
+        return np.maximum(h, 0.2 * h_shallow)
+    return f

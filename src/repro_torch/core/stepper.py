@@ -12,9 +12,11 @@ Stage 1 advances t -> t + dt/2 vertically-implicitly; stage 2 re-integrates
 t -> t + dt with midpoint fluxes, vertically explicit (paper Fig. 2; for
 vertically explicit steps the turbulence update is performed last).
 
-This port runs the fused horizontal pipeline (`core/horizontal.py`); the
-per-call path (`fused_horizontal=False`) and the distributed exchange hooks
-are not ported yet and raise.
+The default is the fused horizontal pipeline (`core/horizontal.py`);
+`fused_horizontal=False` runs the per-call path, which recomputes every
+interpolation per call at the lateral qps and launches no lateral-flux
+kernel (the equivalence oracle of the fused one).  The distributed exchange
+hooks are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -53,7 +55,10 @@ class OceanConfig:
     backend: str = "auto"        # kernel backend (kernels/dispatch.py):
                                  # ref | plain | cuda | auto (auto: cuda on
                                  # CUDA tensors, plain on CPU tensors)
-    fused_horizontal: bool = True  # False: the per-call path (not ported)
+    fused_horizontal: bool = True  # per-stage shared interpolation caches +
+                                   # k-stacked momentum/tracer advection
+                                   # (core/horizontal.py); False runs the
+                                   # per-call path (equivalence oracle)
 
     def with_recovery(self, dt_factor: float = 0.5,
                       visc_factor: float = 1.0) -> "OceanConfig":
@@ -160,8 +165,6 @@ def stage(geom: G.Geom2D, vg: VGrid, cfg: OceanConfig, st0: OceanState,
 
     turb0 provides the mixing coefficients; turb_base (default turb0) is the
     state the turbulence model is advanced *from*."""
-    if not cfg.fused_horizontal:
-        raise NotImplementedError("the per-call horizontal path is not ported")
     if exchange2d is not None or exchange_field is not None:
         raise NotImplementedError("distributed exchange is not ported yet")
     if turb_base is None:
@@ -170,30 +173,43 @@ def stage(geom: G.Geom2D, vg: VGrid, cfg: OceanConfig, st0: OceanState,
     vge0 = layer_geometry(vg, st0.ext.eta, cfg.h_min)   # M0 mesh
     vgee = layer_geometry(vg, eta_e, cfg.h_min)         # evaluation mesh
 
-    # --- per-stage shared interpolations -------------------------------------
+    # --- per-stage shared interpolations (fused horizontal pipeline) --------
     with trace.annotate("stage.edge_cache"):
-        hc = horizontal.stage_cache(geom, vgee, cfg.h_min)
+        hc = (horizontal.stage_cache(geom, vgee, cfg.h_min)
+              if cfg.fused_horizontal else None)
 
     # --- density, pressure gradient r (matrix-free solve) -------------------
     with trace.annotate("stage.pressure_gradient"):
         rho = eos.rho_prime(S_e, T_e, _pressure_dbar(vg, vgee), cfg.eos_kind)
-        F_r, r_s = dg3d.pressure_gradient_rhs(geom, vg, vgee, rho, hc)
+        F_r, r_s = dg3d.pressure_gradient_rhs(geom, vg, vgee, rho, cache=hc)
         r = kops.solve_r(geom, F_r, r_s, backend=cfg.backend)  # (2,nl,6,nt)
 
     # --- component 1: horizontal flux prediction (with q, not qbar) ---------
     with trace.annotate("stage.flux_prediction"):
         q = dg3d.transport_from_velocity(vgee, ux_e, uy_e)
-        tc_pred = horizontal.transport_cache(geom, hc, q[0], q[1])
+        if hc is not None:
+            tc_pred = horizontal.transport_cache(geom, vgee, vg, hc, q[0],
+                                                 q[1], h_min=cfg.h_min)
+            flux_pred = tc_pred.flux
+        else:
+            tc_pred = None
+            flux_pred = dg3d.lateral_flux_speed(
+                geom, vgee, vg, q[0], q[1], eta_e, vg.b, h_min=cfg.h_min)
         nu_h = dg3d.smagorinsky_nu(geom, ux_e, uy_e, cfg.cs_smag)
         u_pair = torch.stack([ux_e, uy_e])
-        # FieldStates of the evaluation velocity + its diffusion term, built
-        # ONCE: the prediction and the momentum update share them
-        fs_u = dg3d.field_states(geom, u_pair, bc_reflect=True)
-        diff_u = dg3d.horizontal_diffusion(geom, vgee, nl, u_pair, nu_h, hc,
-                                           fs_u)
-        f3h_pred = dg3d.horizontal_advection(
-            geom, vgee, nl, u_pair, q[0], q[1], tc_pred.flux, tc_pred, fs_u,
-            backend=cfg.backend) + diff_u
+        if hc is not None:
+            # FieldStates of the evaluation velocity + its diffusion term,
+            # built ONCE: the prediction and the momentum update share them
+            fs_u = dg3d.field_states(geom, u_pair, bc_reflect=True)
+            diff_u = dg3d.horizontal_diffusion(geom, vgee, nl, u_pair, nu_h,
+                                               hc, fs_u)
+            f3h_pred = dg3d.horizontal_advection(
+                geom, vgee, nl, u_pair, q[0], q[1], flux_pred, tc_pred, fs_u,
+                backend=cfg.backend) + diff_u
+        else:
+            f3h_pred = dg3d.horizontal_advdiff(
+                geom, vgee, nl, u_pair, q[0], q[1], flux_pred, nu_h,
+                bc_reflect=True, backend=cfg.backend)
         f3h_pred = f3h_pred + _momentum_extra(geom, vgee, cfg, r, ux_e, uy_e)
 
         # F_3D->2D: vertical sum + wind + (predicted) bottom drag
@@ -235,10 +251,18 @@ def stage(geom: G.Geom2D, vg: VGrid, cfg: OceanConfig, st0: OceanState,
         fb_kw = (dict(fbar_edge=ext.fbar_edge,
                       qbar2d=(ext.q_bar_x, ext.q_bar_y))
                  if cfg.exact_consistency else {})
-        tc = horizontal.transport_cache(geom, hc, qbar[0], qbar[1], **fb_kw)
+        if hc is not None:
+            tc = horizontal.transport_cache(geom, vgee, vg, hc, qbar[0],
+                                            qbar[1], h_min=cfg.h_min, **fb_kw)
+            flux_c = tc.flux
+        else:
+            tc = None
+            flux_c = dg3d.lateral_flux_speed(
+                geom, vgee, vg, qbar[0], qbar[1], eta_e, vg.b,
+                h_min=cfg.h_min, **fb_kw)
         w_t = kops.solve_w(
             geom, dg3d.continuity_rhs(geom, vgee, nl, qbar[0], qbar[1],
-                                      tc.flux, tc),
+                                      flux_c, tc),
             backend=cfg.backend)
 
         wm_i = mesh_velocity(vg, st0.ext.eta, eta1, dtau)    # (nl+1, 3, nt)
@@ -255,10 +279,20 @@ def stage(geom: G.Geom2D, vg: VGrid, cfg: OceanConfig, st0: OceanState,
         open_vals = None
         if forcing.T_open is not None:
             open_vals = torch.stack([forcing.T_open, forcing.S_open])
-        f3h, f3h_tr = horizontal.advdiff_momentum_tracers(
-            geom, vgee, nl, u_pair, tr_pair, qbar[0], qbar[1], tc.flux,
-            nu_h, kap_h, hc, tc, fs_u=fs_u, diff_u=diff_u, open_tr=open_vals,
-            backend=cfg.backend)
+        if hc is not None:
+            # momentum + tracers share flux_c; velocity FieldStates and the
+            # momentum diffusion are reused from the prediction call
+            f3h, f3h_tr = horizontal.advdiff_momentum_tracers(
+                geom, vgee, nl, u_pair, tr_pair, qbar[0], qbar[1], flux_c,
+                nu_h, kap_h, hc, tc, fs_u=fs_u, diff_u=diff_u,
+                open_tr=open_vals, backend=cfg.backend)
+        else:
+            f3h = dg3d.horizontal_advdiff(
+                geom, vgee, nl, u_pair, qbar[0], qbar[1], flux_c, nu_h,
+                bc_reflect=True, backend=cfg.backend)
+            f3h_tr = dg3d.horizontal_advdiff(
+                geom, vgee, nl, tr_pair, qbar[0], qbar[1], flux_c, kap_h,
+                open_values=open_vals, backend=cfg.backend)
 
     # --- component 4: momentum update ----------------------------------------
     with trace.annotate("stage.momentum_update"):

@@ -291,3 +291,18 @@ def block_thomas_solve(blocks: Blocks, rhs: torch.Tensor) -> torch.Tensor:
         xs.append(x)
     xs = torch.stack(xs[::-1])                       # (nl, nt, 6, k)
     return xs.permute(3, 0, 2, 1).contiguous()
+
+
+def blocks_dense(blocks: Blocks) -> torch.Tensor:
+    """Materialise (nt, nl*6, nl*6) dense matrices (tests only)."""
+    lo, dg, up = blocks
+    nl, _, _, nt = dg.shape
+    A = dg.new_zeros((nt, nl * 6, nl * 6))
+    for l in range(nl):
+        r = slice(l * 6, (l + 1) * 6)
+        A[:, r, r] = dg[l].permute(2, 0, 1)
+        if l > 0:
+            A[:, r, (l - 1) * 6:l * 6] = lo[l].permute(2, 0, 1)
+        if l < nl - 1:
+            A[:, r, (l + 1) * 6:(l + 2) * 6] = up[l].permute(2, 0, 1)
+    return A

@@ -1,8 +1,9 @@
 """Where a step's time goes on the card: one profiled step of the quickstart
-case, with device kernel time summed by name.
+case (or of the GBR case at `gbr_reef.FULL_SIZE`, with its forcing), with
+device kernel time summed by name.
 
     PYTHONPATH=src python -m repro_torch.profile_step [--nx 400] [--nl 16]
-        [--dtype float32|float64] [--json-out FILE]
+        [--case quickstart|gbr] [--dtype float32|float64] [--json-out FILE]
 
 Prints the wall time of the profiled step (host clock, ending in
 `torch.cuda.synchronize()`), the device time summed over every kernel, the
@@ -21,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-from . import quickstart
+from . import gbr_reef, quickstart
 from .core import stepper
 
 # the port's own kernels, by the names their templates compile to
@@ -90,14 +91,22 @@ def stage_table(events) -> list:
     return list(rows.values())
 
 
-def profile_step(nx: int, nl: int, dtype, top: int = 25) -> dict:
+def profile_step(nx: int, nl: int, dtype, top: int = 25,
+                 case: str = "quickstart") -> dict:
+    """One profiled step after a warm-up one; ``case="gbr"`` runs the GBR
+    case at `gbr_reef.FULL_SIZE` (nx, nl unused)."""
     from torch.profiler import ProfilerActivity, profile
-    geom, vg, cfg, st = quickstart.setup(nx=nx, nl=nl, dtype=dtype)
-    st = stepper.step(geom, vg, cfg, st)            # warm-up
+    if case == "gbr":
+        geom, vg, cfg, st, forcing_at, _ = gbr_reef.full_size_setup(dtype)
+        nl = cfg.nl
+    else:
+        geom, vg, cfg, st = quickstart.setup(nx=nx, nl=nl, dtype=dtype)
+        forcing_at = lambda t: stepper.Forcing3D()
+    st = stepper.step(geom, vg, cfg, st, forcing_at(st.time))   # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        st = stepper.step(geom, vg, cfg, st)
+        st = stepper.step(geom, vg, cfg, st, forcing_at(st.time))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
@@ -110,7 +119,8 @@ def profile_step(nx: int, nl: int, dtype, top: int = 25) -> dict:
     own_us = sum(_device_us(e) for e in kernels
                  if any(k in e.key for k in OWN_KERNELS))
     return dict(
-        device=torch.cuda.get_device_name(0), nt=geom.nt, nl=nl,
+        device=torch.cuda.get_device_name(0), case=case, nt=geom.nt, nl=nl,
+        m_2d=cfg.m_2d,
         dtype=str(dtype), wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
         idle_share=1.0 - device_us / wall_us, kernel_launches=launches,
         own_kernels_ms=own_us / 1e3, stages=stage_table(prof.events()),
@@ -123,11 +133,15 @@ def main():
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--nx", type=int, default=400)
     ap.add_argument("--nl", type=int, default=16)
+    ap.add_argument("--case", choices=("quickstart", "gbr"),
+                    default="quickstart")
     ap.add_argument("--dtype", choices=("float32", "float64"), default="float32")
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args()
-    res = profile_step(args.nx, args.nl, getattr(torch, args.dtype))
-    print(f"{res['device']}: {res['nt']} triangles x {res['nl']} layers, "
+    res = profile_step(args.nx, args.nl, getattr(torch, args.dtype),
+                       case=args.case)
+    print(f"{res['device']}: {res['case']}, {res['nt']} triangles x "
+          f"{res['nl']} layers, m_2d {res['m_2d']}, "
           f"{res['dtype']}: step wall {res['wall_ms']:.3f} ms, device "
           f"{res['device_ms']:.3f} ms (idle share {res['idle_share']:.3f}), "
           f"{res['kernel_launches']} kernel launches, own kernels "

@@ -27,19 +27,21 @@ DEPTH_M = 20.0           # basin depth [m]
 EXT_COURANT_MAX = 1.1    # largest external-mode Courant number used
 
 
-def external_substeps(mesh: mesh2d.Mesh2D, dt: float) -> int:
+def external_substeps(mesh: mesh2d.Mesh2D, dt: float,
+                      depth: float = DEPTH_M) -> int:
     """External-mode sub-steps per internal step: the reference
     quickstart's 10, doubled until the gravity-wave Courant number
-    sqrt(g b) (dt / m_2d) / r_min on the thinnest triangle (inscribed radius
-    r_min) is at most EXT_COURANT_MAX.  The 2D burst is explicit, and a
-    larger jittered mesh has a thinner worst triangle: 1.04 ran stably for
+    sqrt(g depth) (dt / m_2d) / r_min on the thinnest triangle (inscribed
+    radius r_min) is at most EXT_COURANT_MAX.  The 2D burst is explicit, and
+    a larger jittered mesh has a thinner worst triangle: 1.04 ran stably for
     16 steps on rect_mesh(100, 50), 1.2 blew up within 5 on
-    rect_mesh(400, 200) (see tests/test_torch_external_cfl.py)."""
+    rect_mesh(400, 200) (see tests/test_torch_external_cfl.py).  A case
+    with varying depth passes its deepest point."""
     p, area = mesh.node_xy(), mesh.areas()
     perim = sum(np.linalg.norm(p[:, (i + 1) % 3] - p[:, i], axis=1)
                 for i in range(3))
     r_min = float((2.0 * area / perim).min())
-    c = math.sqrt(geometry.G_GRAV * DEPTH_M)
+    c = math.sqrt(geometry.G_GRAV * depth)
     m_2d = 10
     while c * dt / m_2d / r_min > EXT_COURANT_MAX:
         m_2d *= 2

@@ -123,7 +123,7 @@ def _pipeline(jg, tg, d, jb, tb):
     jq = jd3.transport_from_velocity(jv, ju[0], ju[1])
     tq = td3.transport_from_velocity(tv, tu[0], tu[1])
     jtc = jhor.transport_cache(jg, jv, jvg, jhc, jq[0], jq[1], h_min=H_MIN)
-    ttc = thor.transport_cache(tg, thc, tq[0], tq[1])
+    ttc = thor.transport_cache(tg, tv, tvg, thc, tq[0], tq[1], h_min=H_MIN)
     out["speed_pred"] = (ttc.flux.speed, jtc.flux.speed)
     jqb = jd3.consistent_transport(jv, ju[0], ju[1], jr.q_bar_x, jr.q_bar_y, NL)
     tqb = td3.consistent_transport(tv, tu[0], tu[1], tr.q_bar_x, tr.q_bar_y, NL)
@@ -131,7 +131,8 @@ def _pipeline(jg, tg, d, jb, tb):
     jtcb = jhor.transport_cache(jg, jv, jvg, jhc, jqb[0], jqb[1], h_min=H_MIN,
                                 fbar_edge=jr.fbar_edge,
                                 qbar2d=(jr.q_bar_x, jr.q_bar_y))
-    ttcb = thor.transport_cache(tg, thc, tqb[0], tqb[1], fbar_edge=tr.fbar_edge,
+    ttcb = thor.transport_cache(tg, tv, tvg, thc, tqb[0], tqb[1], h_min=H_MIN,
+                                fbar_edge=tr.fbar_edge,
                                 qbar2d=(tr.q_bar_x, tr.q_bar_y))
     out["speed_exact"] = (ttcb.flux.speed, jtcb.flux.speed)
     out["continuity"] = (

@@ -6,7 +6,9 @@ side of the depths where its plan changes and from data that is not 16-byte
 aligned; K8/K9 in
 float32 and bfloat16),
 the wrappers' input checks, a short step of the cuda backend
-against the plain backend, and the step boundary with its dispatch counts.
+against the plain backend, two steps of the small GBR case (every forcing
+term) through cuda against plain, a per-call step against a fused one, and
+the step boundary with its dispatch counts.
 
 Run on a machine with a CUDA card (no JAX needed):
 
@@ -22,7 +24,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import quickstart  # noqa: E402
+from repro_torch import gbr_reef, quickstart  # noqa: E402
 from repro_torch.core import stepper  # noqa: E402
 from repro_torch.kernels import (cell_transpose, column_solve, cuda_lib,  # noqa: E402
                                  dispatch, flash_attention, horizontal_flux,
@@ -177,6 +179,68 @@ def test_step_cuda_matches_plain(cuda):
     for name in ("ux", "uy", "T", "S", "nu_t"):
         _close(getattr(a, name), getattr(b, name), torch.float64)
     assert float(a.ux.abs().max()) > 0.0
+
+
+# the step's kernel launches a step (chip_smoke.py PER_STEP)
+PER_STEP = {"solve_r": 2, "solve_w": 2, "block_thomas": 2, "lateral_flux": 4,
+            "tridiag": 4}
+# cuda vs plain after whole float64 steps, of each field's own maximum
+# (chip_smoke.py TOL_PATH[float64])
+TOL_PATH_F64 = 1e-8
+
+
+def _gbr_small(dev):
+    """The CPU test's GBR case (tests/test_torch_gbr.py): rect_mesh(8, 5),
+    nl 3, m_2d 4, with a cross-shelf temperature front."""
+    geom, vg, cfg, st, forcing_at = gbr_reef.setup(
+        nx=8, ny=5, nl=3, m_2d=4, dtype=torch.float64, device=dev)
+    front = torch.tanh((geom.node_x - 40e3) / 10e3)
+    T = (24.0 + 2.0 * torch.cat([front, front]))[None].expand(st.T.shape)
+    return geom, vg, cfg, dataclasses.replace(st, T=T.contiguous()), forcing_at
+
+
+def _steps(geom, vg, cfg, st, forcing_at, n):
+    for _ in range(n):
+        st = stepper.step(geom, vg, cfg, st, forcing_at(st.time))
+    return st
+
+
+def test_gbr_steps_cuda_match_plain(cuda):
+    geom, vg, cfg, st, forcing_at = _gbr_small(cuda)
+    ops.reset_launches()
+    a = _steps(geom, vg, cfg, st, forcing_at, 2)
+    assert dict(ops.LAUNCHES) == {(op, "cuda"): 2 * n
+                                  for op, n in PER_STEP.items()}
+    b = _steps(geom, vg, dataclasses.replace(cfg, backend="plain"), st,
+               forcing_at, 2)
+    for name in ("ux", "uy", "T", "S", "turb_k", "turb_eps", "nu_t",
+                 "kappa_t"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert bool(torch.isfinite(x).all()), name
+        err = float((x - y).abs().max()) / max(float(x.abs().max()), 1e-30)
+        assert err <= TOL_PATH_F64, (name, err)
+    err = float((a.ext.eta - b.ext.eta).abs().max())
+    assert err <= TOL_PATH_F64 * float(a.ext.eta.abs().max()), err
+    assert float(a.ux.abs().max()) > 0.0
+
+
+def test_per_call_step_matches_fused_cuda(cuda):
+    """One per-call cuda step (fused_horizontal=False: no lateral-flux
+    launch) against one fused cuda step, within 1e-11 * max(|x|, 1)."""
+    geom, vg, cfg, st, forcing_at = _gbr_small(cuda)
+    st = _steps(geom, vg, cfg, st, forcing_at, 1)
+    ops.reset_launches()
+    a = _steps(geom, vg, dataclasses.replace(cfg, fused_horizontal=False), st,
+               forcing_at, 1)
+    assert dict(ops.LAUNCHES) == {(op, "cuda"): n for op, n in PER_STEP.items()
+                                  if op != "lateral_flux"}
+    b = _steps(geom, vg, cfg, st, forcing_at, 1)
+    for name in ("ux", "uy", "T", "S", "turb_k", "turb_eps", "nu_t",
+                 "kappa_t"):
+        x, y = getattr(a, name), getattr(b, name)
+        err = float((x - y).abs().max())
+        assert err <= 1e-11 * max(float(y.abs().max()), 1.0), (name, err)
+    assert float((a.ext.eta - b.ext.eta).abs().max()) <= 1e-11
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -166,11 +166,10 @@ def test_uniform_tracer_stays_uniform():
 
 
 def test_unported_paths_raise(case):
+    """The distributed exchange hooks are not ported yet (the per-call
+    horizontal path is: tests/test_torch_core_rest.py)."""
     _, _, _, tg, tvg, d = case
     st = convert.state_from_numpy(d, device="cpu")
-    cfg = tstep.OceanConfig(nl=3, dt=20.0, m_2d=4, fused_horizontal=False)
+    cfg = tstep.OceanConfig(nl=3, dt=20.0, m_2d=4)
     with pytest.raises(NotImplementedError):
-        tstep.step(tg, tvg, cfg, st)
-    with pytest.raises(NotImplementedError):
-        tstep.step(tg, tvg, dataclasses.replace(cfg, fused_horizontal=True), st,
-                   exchange2d=lambda s: s)
+        tstep.step(tg, tvg, cfg, st, exchange2d=lambda s: s)
