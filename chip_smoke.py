@@ -4,12 +4,15 @@
     python3 chip_smoke.py            # full size: 160,000 triangles x 16 layers
     python3 chip_smoke.py --k7-only [--src DIR]   # K7 at (16, 160000) only
     python3 chip_smoke.py --k7-depths             # K7's variants over depths
+    python3 chip_smoke.py --campaign-only         # the build and phase 7
 
 With --k7-only, K7 through the default call of the repro_torch found in
 DIR (an earlier checkout's, to time two kernels in one run), by the three
 methods of phase 3; with --k7-depths, both of K7's variants at depths
-around the plan's switch to global (the source of tridiag.MIN_BLOCKS).
-Each prints its lines, a JSON line and the card's name and power limit.
+around the plan's switch to global (the source of tridiag.MIN_BLOCKS);
+with --campaign-only, the build and phase 7 (phase 4's bare step is not
+run, so the runner's overhead over it is not printed).  Each prints its
+lines, a JSON line and the card's name and power limit.
 Phases of the run with no arguments:
 
 (each prints its own lines; any failure raises and exits non-zero):
@@ -132,7 +135,32 @@ Phases of the run with no arguments:
                 redesign (K8_BEFORE_MS) and the bound under the unfactored
                 count of 7 flops an element beside this one.  The times
                 before the redesigns and the 7-flop bound are printed in
-                these lines only, not in the JSON kernel table.
+                these lines only, not in the JSON kernel table;
+  7. campaign — `repro_torch.launch.sim_campaign` through SimulationRunner
+                (step_with_diagnostics, a halting MonitorPolicy, a
+                checkpoint every 2 steps, 2 kept, under a temp dir deleted
+                as it goes) on phase 4's case in float64 at full width,
+                CAMPAIGN_STEPS steps a leg, every leg on the card counted
+                (K1, K2, K3 twice for each step it ran, retried ones
+                included, K4 and K7 four times; the registry must agree):
+                two fault-free legs, which must end bitwise equal (the
+                step is deterministic on the card); then nan-poison,
+                corrupt checkpoint, preemption with a resumed leg, and a
+                failed async save, each bitwise equal to them; the last
+                checkpoint restored onto the CPU and, saved from there,
+                back onto the card, bitwise; the checkpoint's bytes, a
+                save's caller-side copy and worker ms, a restore's ms with
+                its crc32 verification, each leg's ms a step and the
+                runner's step time beside phase 4's bare float64 step;
+                then, on the small case of the JAX dt-ladder test
+                (rect_mesh(4, 3), dt 80 s), blind retry exhausting 4
+                retries and the dt ladder ending at rung 1 at t = 160 s,
+                and a recovery resharded cuda -> CPU and CPU -> cuda
+                (`reshard` at `runner.restore_shardings`), each bitwise
+                equal to a leg resumed on that device; then
+                `python -m repro_torch.chaos_smoke` and `python -m
+                repro_torch.launch.sim_campaign` with a poisoned step,
+                with no --device (the card), which must exit 0.
 
 The line before the last is the card's `nvidia-smi` name and power limit;
 the line before that is the JSON kernel table; the last line is
@@ -232,6 +260,7 @@ NX, NL = 400, 16      # rect_mesh(400, 200): 160,000 triangles x 16 layers
 STEPS = 3             # counted steps of the main path, compared with plain
 TIMED_STEPS = 10      # further steps, timed for the steady ms/step
 SEED = 0              # kernel-phase inputs
+CAMPAIGN_STEPS = 6    # phase 7: steps a campaign leg
 # per-call vs fused step on the plain backend, of max(|x|_inf, 1) per field
 PER_CALL_TOL = 1e-11
 ROOT = Path(__file__).resolve().parent
@@ -247,6 +276,13 @@ def sm_clock_mhz() -> float:
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0])
+
+
+def module_env() -> dict:
+    """The environment in which `python -m repro_torch...` finds this
+    checkout's package."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
 
 
 def nvidia_smi() -> str:
@@ -1360,13 +1396,11 @@ def phase_observed() -> dict:
     log(f"observed step: {jsonl.relative_to(ROOT)} is schema-valid with "
         "stage timings, physics diagnostics and kernel dispatch counters")
 
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
     t0 = time.perf_counter()
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.obs_smoke", "--device", "cuda",
          "--run-dir", str(ROOT / "chiprun_out" / "obs_smoke")],
-        env=env, capture_output=True, text=True, timeout=600)
+        env=module_env(), capture_output=True, text=True, timeout=600)
     log(f"obs_smoke --device cuda: exit {res.returncode} in "
         f"{time.perf_counter() - t0:.1f}s: {res.stdout.strip()} "
         f"{res.stderr.strip()[-2000:]}")
@@ -1781,12 +1815,285 @@ def model_rows(model: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the resilient campaign
+# ---------------------------------------------------------------------------
+def state_diff(a, b) -> dict:
+    """Largest |a - b| of each leaf of two states on one device."""
+    from repro_torch import tree as T
+    return {T.keystr(p): float((x - y).abs().max())
+            for (p, x), y in zip(T.flatten_with_path(a), T.leaves(b))}
+
+
+def require_bitwise(got, want, what: str) -> None:
+    from repro_torch.chaos_smoke import bitwise_equal
+    if not bitwise_equal(got, want):
+        raise AssertionError(f"{what}: not bitwise equal to the fault-free "
+                             f"leg; max |diff| by leaf {state_diff(got, want)}")
+
+
+def checkpoint_bytes(directory: Path) -> int:
+    return sum(f.stat().st_size for f in directory.iterdir())
+
+
+def phase_campaign(bare_ms: float) -> dict:
+    """`sim_campaign` legs through SimulationRunner on the card: phase 4's
+    case in float64 at full width, CAMPAIGN_STEPS steps a leg, a checkpoint
+    every 2 steps, 2 kept.  Two fault-free legs must end bitwise equal;
+    each recoverable fault class must end bitwise equal to them; the
+    checkpoint restores onto the CPU and back bitwise; then, at the small
+    case of the JAX dt-ladder test, the ladder and a recovery resharded
+    onto the other device."""
+    import shutil
+    import tempfile
+    from repro_torch import quickstart
+    from repro_torch import tree as T
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sim_campaign
+    from repro_torch.obs import diagnostics, metrics
+    from repro_torch.runtime import chaos
+    from repro_torch.runtime.fault_tolerance import LadderConfig, RunnerConfig
+
+    n = CAMPAIGN_STEPS
+    geom, vg, cfg, st0 = quickstart.setup(nx=NX, nl=NL, dtype=torch.float64,
+                                          device="cuda")
+    case = sim_campaign.Case(geom=geom, vg=vg, cfg=cfg, state=st0)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_campaign_"))
+    res = dict(legs={})
+
+    def leg(name, plan=None, resume=False, c=case, steps=n, emit=False,
+            ladder=None, keep=False, counted=True):
+        """One campaign leg; a counted leg (all on the card) must launch
+        each kernel PER_STEP times for every step it ran, the retried ones
+        included, as the registry counts it."""
+        d = root / name
+        rcfg = RunnerConfig(checkpoint_dir=str(d), checkpoint_every=2,
+                            keep_last=2, max_retries=3, emit_metrics=emit,
+                            backoff_base_s=0.0)
+        metrics.reset()
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, runner = sim_campaign.run_campaign(
+            c, steps, rcfg, ladder=ladder,
+            policy=sim_campaign.default_policy(), plan=plan, resume=resume)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ran = runner.stats["steps"]
+        launches = dict(ops.LAUNCHES)
+        if counted:
+            runs = ran + runner.stats["retries"]
+            expect = {(op, "cuda"): runs * k for op, k in PER_STEP.items()}
+            if launches != expect:
+                raise AssertionError(f"campaign leg {name}: launches "
+                                     f"{launches} != {expect}")
+            check_dispatches(launches)
+        res["legs"][name] = dict(wall_s=wall, steps=ran,
+                                 retries=runner.stats["retries"],
+                                 ms_per_step=wall / max(ran, 1) * 1e3,
+                                 launches={op: k for (op, _), k in
+                                           launches.items()} if counted
+                                 else None)
+        log(f"campaign leg {name}: {ran} steps in {wall:.3f} s "
+            f"({wall / max(ran, 1) * 1e3:.2f} ms a step, checkpoints and "
+            f"recovery included); stats {runner.stats}; launches "
+            f"{sorted(launches.items()) if counted else 'not counted'}; "
+            f"chaos {plan.log if plan is not None else []}")
+        if not keep:
+            shutil.rmtree(d, ignore_errors=True)
+        return out, runner
+
+    try:
+        # 1. determinism: two fault-free legs
+        base, runner = leg("baseline", emit=True, keep=True)
+        launches = {(op, "cuda"): k for op, k in
+                    res["legs"]["baseline"]["launches"].items()}
+        res["launches"] = launches
+        hist = metrics.default().histogram("runner.step_time_s").snapshot()
+        res["runner_step_ms"] = {k: hist[k] * 1e3
+                                 for k in ("p50", "min", "max")}
+        log(f"campaign: launches {sorted(launches.items())} over {n} steps "
+            f"(2/2/2/4/4 a step, equal to the registry); the runner's step "
+            f"(step, diagnostics, monitor) p50 {hist['p50'] * 1e3:.2f} ms "
+            f"(min {hist['min'] * 1e3:.2f}, max {hist['max'] * 1e3:.2f}) "
+            f"against phase 4's bare f64 step {bare_ms:.2f} ms")
+        again, _ = leg("baseline2")
+        require_bitwise(again, base, "second fault-free leg")
+        log("campaign: two fault-free full-width cuda legs bitwise equal")
+        del again
+
+        # 2. the four recoverable fault classes
+        plan = chaos.FaultPlan([chaos.Fault("sim.state", "poison_nan",
+                                            step=n - 1, field="T")])
+        out, r = leg("nan", plan)
+        if not (len(plan.log) == 1 and r.stats["retries"] == 1
+                and r.rung == 0):
+            raise AssertionError(f"nan leg: {plan.log} {r.stats}")
+        require_bitwise(out, base, "nan-poison leg")
+
+        plan = chaos.FaultPlan(
+            [chaos.Fault("checkpoint.saved", "truncate", step=4),
+             chaos.Fault("sim.state", "poison_inf", step=n - 1, field="ux")])
+        out, r = leg("corrupt", plan)
+        skipped = metrics.default().snapshot()["counter"].get(
+            "checkpoint.corrupt_skipped", 0)
+        if not skipped >= 1:
+            raise AssertionError("corrupt leg: no corrupt step skipped")
+        require_bitwise(out, base, "corrupt-checkpoint leg")
+
+        plan = chaos.FaultPlan([chaos.Fault("runner.step", "preempt",
+                                            step=n - 2)])
+        _, r1 = leg("preempt", plan, keep=True)
+        if not (r1.stats["preempted"] and r1.ckpt.latest_step() == n - 2):
+            raise AssertionError(f"preempt leg: {r1.stats}")
+        out, r2 = leg("preempt", resume=True)
+        if r2.stats["steps"] != 2:
+            raise AssertionError(f"resumed leg ran {r2.stats['steps']} steps")
+        require_bitwise(out, base, "preempted and resumed legs")
+
+        plan = chaos.FaultPlan([chaos.Fault("checkpoint.write", "io_error",
+                                            step=2)])
+        out, r = leg("savefail", plan)
+        if not (r.stats["ckpt_failures"] == 1 and r.stats["retries"] == 0):
+            raise AssertionError(f"save-failure leg: {r.stats}")
+        require_bitwise(out, base, "save-failure leg")
+        del out
+        log("campaign: nan-poison, corrupt checkpoint, preemption and save "
+            "failure each end bitwise equal to the fault-free leg")
+
+        # 3. the checkpoint: bytes, save and restore times, across devices
+        ck = runner.ckpt
+        step_dir = root / "baseline" / f"step_{n:09d}"
+        res["checkpoint_bytes"] = checkpoint_bytes(step_dir)
+        res["state_bytes"] = sum(x.numel() * x.element_size()
+                                 for x in T.leaves(base))
+        t0 = time.perf_counter()
+        on_cpu = ck.restore(st0, devices="cpu")
+        res["restore_cpu_ms"] = (time.perf_counter() - t0) * 1e3
+        require_bitwise(on_cpu, T.map_leaves(lambda x: x.cpu(), base),
+                        "checkpoint restored onto the CPU")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = ck.restore(st0)
+        torch.cuda.synchronize()
+        res["restore_cuda_ms"] = (time.perf_counter() - t0) * 1e3
+        require_bitwise(on_card, base, "checkpoint restored onto the card")
+        host = Checkpointer(str(root / "host"), keep_last=2)
+        host.save(n, on_cpu, blocking=True)
+        back = host.restore(on_cpu, devices="cuda")
+        require_bitwise(back, base, "cuda -> CPU -> cuda restore")
+        del on_cpu, on_card, back
+        shutil.rmtree(root / "host", ignore_errors=True)
+        saves = []
+        timed = Checkpointer(str(root / "timed"), keep_last=1)
+        for k in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timed.save(k, base)
+            t1 = time.perf_counter()
+            timed.wait()
+            saves.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+        res["save_ms"] = saves
+        shutil.rmtree(root / "timed", ignore_errors=True)
+        log(f"campaign checkpoint: {res['checkpoint_bytes']} bytes on disk "
+            f"({res['state_bytes']} bytes of state, {len(T.leaves(st0))} "
+            f"leaves); save: "
+            f"caller-side copy {[round(c, 2) for c, _ in saves]} ms, worker "
+            f"(np.save + crc32 + rename) {[round(w, 2) for _, w in saves]} "
+            f"ms; restore with crc32 verification onto the CPU "
+            f"{res['restore_cpu_ms']:.2f} ms, onto the card "
+            f"{res['restore_cuda_ms']:.2f} ms; cuda -> CPU -> cuda bitwise")
+        del base
+        shutil.rmtree(root / "baseline", ignore_errors=True)
+        del case, geom, vg, st0, runner, ck
+        torch.cuda.empty_cache()
+
+        # 4. the small case: the dt ladder, and recoveries resharded onto
+        # the other device (each against a leg resumed on that device)
+        small = sim_campaign.build_case(nx=4, ny=3, nl=4, dt=80.0,
+                                        device="cuda")
+        try:
+            leg("blind", c=small, steps=4, emit=True,
+                ladder=LadderConfig(max_rungs=0))
+            raise AssertionError("blind retry at dt 80 did not fail")
+        except diagnostics.MonitorHalt:
+            pass
+        blind = metrics.default().snapshot()["counter"].get("runner.retries")
+        if blind != 4:
+            raise AssertionError(f"blind retry: {blind} retries, not 4")
+        out, r = leg("ladder", c=small, steps=4, emit=True,
+                     ladder=LadderConfig(dt_factor=0.5, max_rungs=2,
+                                         recover_steps=64))
+        d = diagnostics.to_dict(diagnostics.compute(
+            small.geom, small.vg, small.cfg.with_recovery(0.5), out))
+        if not (r.rung == 1 and r.stats["steps"] == 4
+                and float(out.time) == 4 * 40.0 and not d["nonfinite"]
+                and d["cfl_2d"] < 1.0):
+            raise AssertionError(f"dt ladder: rung {r.rung} {r.stats} "
+                                 f"time {float(out.time)} {d}")
+        res["ladder"] = dict(rung=r.rung, steps=r.stats["steps"],
+                             time=float(out.time), cfl_2d=d["cfl_2d"])
+        log(f"campaign dt ladder (rect_mesh(4, 3), dt 80 s): blind retry "
+            f"exhausts 4 retries; the ladder ends at rung {r.rung}, "
+            f"{r.stats['steps']} steps, time {float(out.time)} s, cfl_2d "
+            f"{d['cfl_2d']:.4f}")
+
+        on = {"cuda": sim_campaign.build_case(nx=4, ny=3, nl=4,
+                                              device="cuda")}
+        on["cpu"] = T.map_leaves(
+            lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, on["cuda"])
+        for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+            plan = chaos.FaultPlan([chaos.Fault("runner.step", "preempt",
+                                                step=4)])
+            leg(f"to_{dst}", plan, c=on[src], keep=True,
+                counted=src == "cuda")
+            ref, _ = leg(f"to_{dst}", c=on[dst], resume=True,
+                         counted=dst == "cuda")
+            plan = chaos.FaultPlan(
+                [chaos.Fault("sim.state", "poison_nan", step=5, field="S"),
+                 chaos.Fault("runner.restore_shardings", "reshard",
+                             args={"device": dst})])
+            out, r = leg(f"reshard_to_{dst}", plan, c=on[src], counted=False)
+            if [f["kind"] for f in plan.log] != ["poison_nan", "reshard"]:
+                raise AssertionError(f"reshard leg: {plan.log}")
+            require_bitwise(out, ref, f"recovery resharded {src} -> {dst}")
+            if out.ux.device.type != dst:
+                raise AssertionError(f"resharded leg ended on {out.ux.device}")
+        log("campaign: a recovery resharded cuda -> CPU and CPU -> cuda "
+            "ends bitwise equal to a leg resumed on that device")
+
+        # 5. the entry points, with no --device: on the card
+        for args, expect in (
+                (["repro_torch.chaos_smoke"], "OK chaos smoke"),
+                (["repro_torch.launch.sim_campaign", "--steps", "6",
+                  "--ckpt-every", "2", "--ckpt", str(root / "cli"),
+                  "--fault", "poison_nan@sim.state:step=5,field=T"],
+                 "steps=7 retries=1")):
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, "-m", *args],
+                                 env=module_env(), capture_output=True,
+                                 text=True, timeout=600)
+            out = run.stdout.strip()
+            log(f"python -m {' '.join(args)}: exit {run.returncode} in "
+                f"{time.perf_counter() - t0:.1f}s: {out[-1500:]} "
+                f"{run.stderr.strip()[-2000:]}")
+            if run.returncode != 0 or expect not in out or "cuda" not in out:
+                raise AssertionError(f"{args[0]} on the card: exit "
+                                     f"{run.returncode}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k7-only", action="store_true",
                     help="only time K7 at the main path's shape (k7_only)")
     ap.add_argument("--k7-depths", action="store_true",
                     help="only sweep K7's variants over depths (k7_depths)")
+    ap.add_argument("--campaign-only", action="store_true",
+                    help="only build and run phase 7 (phase_campaign)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory holding repro_torch (default: ./src)")
     args = ap.parse_args(argv)
@@ -1802,6 +2109,15 @@ def main(argv=None) -> int:
         rows = (k7_only(2 * NX * (NX // 2), NL, SEED) if args.k7_only
                 else k7_depths(2 * NX * (NX // 2), SEED))
         print(json.dumps({"src": args.src, "rows": rows}))
+        print(nvidia_smi())
+        return 0
+
+    if args.campaign_only:
+        log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}")
+        cuda_lib.build()
+        res = phase_campaign(float("nan"))
+        print(json.dumps({"campaign": {k: v for k, v in res.items()
+                                       if k != "launches"}}))
         print(nvidia_smi())
         return 0
 
@@ -1838,7 +2154,7 @@ def main(argv=None) -> int:
     # 4. main path: float32 (the run the kernel table's launches come from),
     # then float64, where every field is held to TOL_PATH
     mres = phase_main_path(torch.float32)
-    phase_main_path(torch.float64)
+    mres64 = phase_main_path(torch.float64)
 
     # 5. the observed step, float64
     phase_observed()
@@ -1848,6 +2164,9 @@ def main(argv=None) -> int:
 
     # 6. the model kernels at the LM configs' widths
     model = phase_model(ptxas)
+
+    # 7. the resilient campaign, float64, against phase 4's bare step
+    campaign = phase_campaign(mres64["ms_per_step"])
 
     table = []
     for name, label in TABLE_CASE.items():
@@ -1863,8 +2182,10 @@ def main(argv=None) -> int:
             plain_ms_f64=r64["plain_ms"], library_ms_f64=r64["library_ms"],
             max_abs_err_f64=r64["max_abs_err"]))
         if name in PER_STEP:
-            # the launches of phase 5b's 3 counted GBR steps
+            # the launches of phase 5b's 3 counted GBR steps and of phase
+            # 7's fault-free campaign leg (CAMPAIGN_STEPS steps)
             table[-1]["launches_gbr"] = gbr["launches"][(name, "cuda")]
+            table[-1]["launches_campaign"] = campaign["launches"][(name, "cuda")]
         if name == "block_thomas":
             # the plan's tile, the narrower ones and the global variant
             # at the main path's shape, and the deep case

@@ -8,7 +8,9 @@ float32 and bfloat16),
 the wrappers' input checks, a short step of the cuda backend
 against the plain backend, two steps of the small GBR case (every forcing
 term) through cuda against plain, a per-call step against a fused one, and
-the step boundary with its dispatch counts.
+the step boundary with its dispatch counts, and the resilient campaign
+(two fault-free legs bitwise, a cuda -> CPU -> cuda restore bitwise, a
+poisoned leg bitwise to the fault-free one).
 
 Run on a machine with a CUDA card (no JAX needed):
 
@@ -25,11 +27,17 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import gbr_reef, quickstart  # noqa: E402
+from repro_torch import tree as T  # noqa: E402
+from repro_torch.chaos_smoke import bitwise_equal  # noqa: E402
+from repro_torch.checkpoint.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.core import stepper  # noqa: E402
 from repro_torch.kernels import (cell_transpose, column_solve, cuda_lib,  # noqa: E402
                                  dispatch, flash_attention, horizontal_flux,
                                  matrix_free, ops, tridiag, wkv6)
+from repro_torch.launch import sim_campaign  # noqa: E402
 from repro_torch.obs import metrics  # noqa: E402
+from repro_torch.runtime import chaos  # noqa: E402
+from repro_torch.runtime.fault_tolerance import RunnerConfig  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -684,3 +692,57 @@ def test_model_wrappers_reject_bad_inputs(cuda):
             flash_attention.flash_attention(odd, q.to(dtype), q.to(dtype))
     with pytest.raises(ValueError):                  # cuda on CPU tensors
         ops.attention(q.cpu(), q.cpu(), q.cpu(), backend="cuda")
+
+
+# --- the resilient campaign: runner, checkpoints and chaos on the card --------
+# the step's kernel launches a step (K1/K2/K3/K4/K7), as the registry has them
+CAMPAIGN_PER_STEP = {"solve_r": 2, "solve_w": 2, "block_thomas": 2,
+                     "lateral_flux": 4, "tridiag": 4}
+
+
+def _campaign_leg(case, tmp_path, name, plan=None, resume=False, n=6):
+    cfg = RunnerConfig(checkpoint_dir=str(tmp_path / name),
+                       checkpoint_every=2, max_retries=3, emit_metrics=False,
+                       backoff_base_s=0.0)
+    return sim_campaign.run_campaign(case, n, cfg,
+                                     policy=sim_campaign.default_policy(),
+                                     plan=plan, resume=resume)
+
+
+def test_campaign_fault_free_legs_bitwise(cuda, tmp_path):
+    """Two fault-free 6-step legs of the small campaign through the cuda
+    backend end bitwise equal: the step is deterministic on the card."""
+    case = sim_campaign.build_case(nx=4, ny=3, nl=4, device=cuda)
+    ops.reset_launches()
+    a, runner = _campaign_leg(case, tmp_path, "a")
+    assert dict(ops.LAUNCHES) == {(op, "cuda"): 6 * n
+                                  for op, n in CAMPAIGN_PER_STEP.items()}
+    assert runner.stats["steps"] == 6 and a.ux.is_cuda
+    b, _ = _campaign_leg(case, tmp_path, "b")
+    assert bitwise_equal(a, b)
+
+
+def test_campaign_restore_cuda_cpu_cuda_bitwise(cuda, tmp_path):
+    """A checkpoint of the cuda leg restores onto the CPU bitwise, and that
+    CPU state, checkpointed, restores onto the card bitwise."""
+    case = sim_campaign.build_case(nx=4, ny=3, nl=4, device=cuda)
+    st, runner = _campaign_leg(case, tmp_path, "leg")
+    on_cpu = runner.ckpt.restore(case.state, devices="cpu")
+    assert on_cpu.ux.device.type == "cpu"
+    assert bitwise_equal(on_cpu, T.map_leaves(lambda x: x.cpu(), st))
+    ck = Checkpointer(str(tmp_path / "host"))
+    ck.save(6, on_cpu, blocking=True)
+    back = ck.restore(on_cpu, devices=cuda)
+    assert back.ux.is_cuda and bitwise_equal(back, st)
+
+
+def test_campaign_poison_leg_bitwise(cuda, tmp_path):
+    """NaN in T at step 5: the runner restores step 4 and re-runs; the leg
+    ends bitwise equal to the fault-free one."""
+    case = sim_campaign.build_case(nx=4, ny=3, nl=4, device=cuda)
+    base, _ = _campaign_leg(case, tmp_path, "base")
+    plan = chaos.FaultPlan([chaos.Fault("sim.state", "poison_nan", step=5,
+                                        field="T")])
+    out, runner = _campaign_leg(case, tmp_path, "nan", plan=plan)
+    assert len(plan.log) == 1 and runner.stats["retries"] == 1
+    assert bitwise_equal(out, base)

@@ -1,7 +1,9 @@
 """The PyTorch port imports nothing of JAX and nothing of the JAX package.
 
-Every module of `repro_torch`, `chip_smoke.py` (imported, not run) and the
-`obs_smoke` entry point are imported in a fresh interpreter in which a
+Every module of `repro_torch` (the runtime's checkpoint, chaos, runners,
+data pipeline, campaign launcher, chaos smoke and timing helper among
+them), `chip_smoke.py` (imported, not run) and the `obs_smoke` entry point
+are imported in a fresh interpreter in which a
 meta-path finder refuses `jax`, `jaxlib` and `repro`; the test then checks
 that none of them reached `sys.modules`.
 """
@@ -15,6 +17,9 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
+RUNTIME = ("tree", "checkpoint.checkpoint", "runtime.chaos",
+           "runtime.fault_tolerance", "data.pipeline", "launch.sim_campaign",
+           "chaos_smoke", "benchmarks.common")
 
 SCRIPT = textwrap.dedent(r"""
     import importlib, importlib.util, pkgutil, sys
@@ -42,6 +47,7 @@ SCRIPT = textwrap.dedent(r"""
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
     assert not leaked, leaked
+    print(" ".join(names))
     print(len(names))
 """)
 
@@ -51,9 +57,11 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=300,
                          cwd=str(ROOT))
     assert res.returncode == 0, res.stderr
-    n = int(res.stdout.strip().splitlines()[-1])
+    lines = res.stdout.strip().splitlines()
+    n, names = int(lines[-1]), set(lines[-2].split())
     # every module of the package, obs and obs_smoke included
-    assert n >= 25, res.stdout
+    assert n >= 35, res.stdout
+    assert names >= {f"repro_torch.{m}" for m in RUNTIME}, res.stdout
 
 
 def test_finder_refuses_jax():
