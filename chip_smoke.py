@@ -5,14 +5,16 @@
     python3 chip_smoke.py --k7-only [--src DIR]   # K7 at (16, 160000) only
     python3 chip_smoke.py --k7-depths             # K7's variants over depths
     python3 chip_smoke.py --campaign-only         # the build and phase 7
+    python3 chip_smoke.py --distributed-only      # the build and phase 8
 
 With --k7-only, K7 through the default call of the repro_torch found in
 DIR (an earlier checkout's, to time two kernels in one run), by the three
 methods of phase 3; with --k7-depths, both of K7's variants at depths
 around the plan's switch to global (the source of tridiag.MIN_BLOCKS);
 with --campaign-only, the build and phase 7 (phase 4's bare step is not
-run, so the runner's overhead over it is not printed).  Each prints its
-lines, a JSON line and the card's name and power limit.
+run, so the runner's overhead over it is not printed); with
+--distributed-only, the build and phase 8.  Each prints its lines, a JSON
+line and the card's name and power limit.
 Phases of the run with no arguments:
 
 (each prints its own lines; any failure raises and exits non-zero):
@@ -160,7 +162,30 @@ Phases of the run with no arguments:
                 equal to a leg resumed on that device; then
                 `python -m repro_torch.chaos_smoke` and `python -m
                 repro_torch.launch.sim_campaign` with a poisoned step,
-                with no --device (the card), which must exit 0.
+                with no --device (the card), which must exit 0;
+  8. distributed — `repro_torch.distributed` on ranks that share the card
+                (one process each on cuda:0, started by
+                `distributed.spawn.run` with a deadline; the transport is
+                gloo-staged, since NCCL refuses two ranks on one device):
+                phase 4's case in float64 at full width, 3 steps on 4 ranks
+                per stage (halo_exchange_period 0, 1-deep halo), then 3 on
+                2 ranks comm-avoiding (period 2, 6-deep halo), each rank
+                through the CUDA kernels (backend auto); rank 0 reads the
+                initial state from a global checkpoint and scatters it,
+                and the gathered state is saved by rank 0; that state must
+                be within 1e-10 of each field's max (eta 1e-12) of the
+                single-device cuda step on the card with identity hooks
+                and the same period, and within TOL_PATH of the
+                single-device ref step; every rank's tensors on the card,
+                its cuda launches PER_STEP a step (equal to the registry's
+                kernel_dispatch counts), and halo.ppermute a step equal to
+                the closed form of tests/torch_dist_ranks.py.  Prints per
+                rank n_own, n_loc, halo slots, offsets, exchanges and bytes
+                a step, step times and peak memory; ms a step of steps 2-3
+                (the slowest rank's, between barriers) beside the
+                single-device cuda and ref steps'.  These ranks time-share
+                one card and stage every exchange through the host: their
+                ms is a record of this path, not a scaling figure.
 
 The line before the last is the card's `nvidia-smi` name and power limit;
 the line before that is the JSON kernel table; the last line is
@@ -2086,6 +2111,213 @@ def phase_campaign(bare_ms: float) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the distributed step, ranks on the card
+# ---------------------------------------------------------------------------
+# (ranks, halo_exchange_period): per stage with a 1-deep halo, then
+# communication-avoiding with a 6-deep one
+DIST_RUNS = ((4, 0), (2, 2))
+DIST_STEPS = 3
+DIST_TIMEOUT_S = 480
+# the gathered state against the single-device cuda step with identity hooks
+# and the same period, of each field's max, and eta absolute; against the
+# single-device ref step (the kernels' rounding, amplified by GLS) TOL_PATH
+DIST_TOL, DIST_ETA_TOL = 1e-10, 1e-12
+
+
+def dist_rank(rank: int, n_ranks: int, run: dict) -> dict:
+    """One rank of phase 8, a process on cuda:0: its DistributedOcean of
+    the main-path basin (backend auto: the CUDA kernels), the global
+    initial state read by rank 0 from a checkpoint and scattered, `steps`
+    timed steps (between barriers) with their launches counted, the
+    gathered state saved by rank 0."""
+    from repro_torch import quickstart
+    from repro_torch import tree as T
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.distributed import halo, ocean
+    from repro_torch.kernels import ops
+    from repro_torch.obs import metrics
+
+    mesh = quickstart.basin_mesh(run["nx"])
+    tr = halo.Transport()
+    do = ocean.DistributedOcean(
+        mesh, np.full((3, mesh.nt), quickstart.DEPTH_M), run["cfg"],
+        rank, n_ranks, tr, device="cuda")
+    st = do.restore(Checkpointer(run["init"]))
+    step = do.make_step()
+    reg = metrics.default()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ms, shifts, nbytes = [], [], []
+    for _ in range(run["steps"]):
+        s0 = reg.counter("halo.ppermute").value
+        b0 = reg.counter("halo.bytes").value
+        tr.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = step(st)
+        torch.cuda.synchronize()
+        tr.barrier()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        shifts.append(int(reg.counter("halo.ppermute").value - s0))
+        nbytes.append(int(reg.counter("halo.bytes").value - b0))
+    launches = dict(ops.LAUNCHES)
+    check_dispatches(launches)     # nothing dispatched before the steps
+    peak = torch.cuda.max_memory_allocated()
+    tensors = [*T.leaves(st), do.geom.area, do.b, *do.tables.send,
+               *do.tables.recv]
+    do.save(Checkpointer(run["out"]), run["steps"], st)
+    return dict(
+        rank=rank, mode=tr.mode, n_own=do.spec.n_own, n_loc=do.spec.n_loc,
+        halo_slots=int(sum(s.shape[-1] for s in do.tables.send)),
+        offsets=do.tables.offsets, backend=do.cfg.backend,
+        on_card=all(x.is_cuda for x in tensors), ms=ms, shifts=shifts,
+        bytes=nbytes, launches=launches, peak_bytes=peak)
+
+
+def dist_diffs(ref, got) -> tuple:
+    """Each field's max difference over its own max, and eta's absolute;
+    raises on a non-finite gathered value."""
+    diffs = {}
+    for name, get in FIELDS.items():
+        a, b = get(ref), get(got)
+        if not bool(torch.isfinite(b).all()):
+            raise AssertionError(f"distributed: gathered {name} not finite")
+        amax = float(a.abs().max())
+        diffs[name] = float((a - b).abs().max()) / (amax or 1.0)
+    return diffs, float((ref.ext.eta - got.ext.eta).abs().max())
+
+
+def phase_distributed() -> dict:
+    """The distributed step (`repro_torch.distributed`) on ranks that share
+    the card: phase 4's case in float64 at full width, DIST_STEPS steps on
+    each of DIST_RUNS through the CUDA kernels (counted on every rank),
+    gathered into a checkpoint and held against the single-device cuda
+    and ref steps on the card with identity hooks and the same period."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch import quickstart
+    from repro_torch import tree as T
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.core import stepper
+    from repro_torch.distributed import spawn
+    sys.path.insert(0, str(ROOT / "tests"))
+    # the closed form the CPU tests hold the halo counts to
+    from torch_dist_ranks import shifts_per_step
+
+    geom, vg, cfg0, st0 = quickstart.setup(nx=NX, nl=NL, dtype=torch.float64,
+                                           device="cuda")
+    log(f"distributed: {geom.nt} triangles x {NL} layers, float64, "
+        f"m_2d={cfg0.m_2d}, backend {cfg0.backend}; runs (ranks, "
+        f"halo_exchange_period) {DIST_RUNS}, {DIST_STEPS} steps each, every "
+        f"rank a process on cuda:0")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    res = {}
+    try:
+        Checkpointer(str(tmp / "init")).save(0, st0, blocking=True)
+        for n_ranks, period in DIST_RUNS:
+            cfg = dataclasses.replace(cfg0, halo_exchange_period=period)
+            single, single_ms = {}, {}
+            for bk in ("cuda", "ref"):
+                st, single_ms[bk] = st0, []
+                for _ in range(DIST_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    st = stepper.step(geom, vg,
+                                      dataclasses.replace(cfg, backend=bk),
+                                      st, exchange2d=lambda s: s,
+                                      exchange_field=lambda f: f)
+                    torch.cuda.synchronize()
+                    single_ms[bk].append((time.perf_counter() - t0) * 1e3)
+                single[bk] = T.map_leaves(lambda x: x.cpu(), st)
+                del st
+            torch.cuda.empty_cache()
+
+            out_dir = tmp / f"ranks{n_ranks}"
+            t0 = time.perf_counter()
+            ranks = spawn.run(dist_rank, n_ranks, timeout_s=DIST_TIMEOUT_S,
+                              args=(dict(nx=NX, init=str(tmp / "init"),
+                                         out=str(out_dir), steps=DIST_STEPS,
+                                         cfg=cfg),))
+            wall = time.perf_counter() - t0
+            got = Checkpointer(str(out_dir)).restore(single["ref"],
+                                                     step=DIST_STEPS)
+            shutil.rmtree(out_dir)
+
+            vs = {bk: dist_diffs(single[bk], got) for bk in single}
+            bad = {k: v for k, v in vs["cuda"][0].items() if not v <= DIST_TOL}
+            bad |= {f"{k} (vs ref)": v for k, v in vs["ref"][0].items()
+                    if not v <= TOL_PATH[torch.float64]}
+            if (bad or not vs["cuda"][1] <= DIST_ETA_TOL
+                    or not vs["ref"][1] <= TOL_PATH[torch.float64]):
+                raise AssertionError(
+                    f"distributed {n_ranks} ranks, period {period}: gathered "
+                    f"against single-device steps {bad}, eta abs "
+                    f"{vs['cuda'][1]:.3e} (cuda), {vs['ref'][1]:.3e} (ref)")
+            expect_launches = {(k, "cuda"): DIST_STEPS * n
+                               for k, n in PER_STEP.items()}
+            for r in ranks:
+                closed = shifts_per_step(len(r["offsets"]), period, cfg.m_2d)
+                checks = {
+                    "transport gloo-staged": r["mode"] == "gloo-staged",
+                    "tensors on the card": r["on_card"],
+                    f"cuda launches {expect_launches}":
+                        r["launches"] == expect_launches,
+                    f"halo.ppermute {closed} a step":
+                        r["shifts"] == [closed] * DIST_STEPS}
+                failed = [k for k, ok in checks.items() if not ok]
+                if failed:
+                    raise AssertionError(f"distributed rank {r['rank']} of "
+                                         f"{n_ranks}: {failed}: {r}")
+            timed = [max(r["ms"][i] for r in ranks)
+                     for i in range(1, DIST_STEPS)]
+            row = dict(
+                ranks=n_ranks, period=period, mode=ranks[0]["mode"],
+                backend=ranks[0]["backend"],
+                launches_per_rank={k[0]: v for k, v in
+                                   ranks[0]["launches"].items()},
+                ms_mean=float(np.mean(timed)), ms_min=min(timed),
+                ms_max=max(timed), single_ms=single_ms,
+                single_ms_mean={bk: float(np.mean(v[1:]))
+                                for bk, v in single_ms.items()},
+                wall_s=wall, rel_diff_vs_cuda=vs["cuda"][0],
+                eta_abs_vs_cuda=vs["cuda"][1], rel_diff_vs_ref=vs["ref"][0],
+                eta_abs_vs_ref=vs["ref"][1],
+                per_rank=[{k: r[k] for k in (
+                    "rank", "n_own", "n_loc", "halo_slots", "offsets", "ms",
+                    "peak_bytes")} | {"shifts_per_step": r["shifts"][-1],
+                                      "bytes_per_step": r["bytes"][-1]}
+                          for r in ranks])
+            res[f"{n_ranks}x{period}"] = row
+            for r in row["per_rank"]:
+                log(f"distributed {n_ranks} ranks, period {period}, rank "
+                    f"{r['rank']}: n_own {r['n_own']}, n_loc {r['n_loc']}, "
+                    f"halo slots {r['halo_slots']}, offsets {r['offsets']}, "
+                    f"{r['shifts_per_step']} exchanges and "
+                    f"{r['bytes_per_step']} bytes a step; step ms "
+                    f"{[round(t, 2) for t in r['ms']]}; peak memory "
+                    f"{r['peak_bytes'] / 2**30:.3f} GiB ({r['peak_bytes']} B)")
+            short = lambda d: {k: float(f"{v:.3e}") for k, v in d.items()}
+            log(f"distributed {n_ranks} ranks, period {period} "
+                f"({row['mode']}, backend {row['backend']}: cuda launches a "
+                f"rank {row['launches_per_rank']} in {DIST_STEPS} steps): ms "
+                f"a step over a barrier, steps 2-{DIST_STEPS}: mean "
+                f"{row['ms_mean']:.2f} (min {row['ms_min']:.2f}, max "
+                f"{row['ms_max']:.2f}); single-device steps ms "
+                f"{ {bk: [round(t, 2) for t in v] for bk, v in single_ms.items()} }; "
+                f"run {wall:.1f} s with spawn and set-up; gathered against "
+                f"the single-device cuda step {short(vs['cuda'][0])}, eta abs "
+                f"{vs['cuda'][1]:.3e}; against the ref step "
+                f"{short(vs['ref'][0])}, eta abs {vs['ref'][1]:.3e}; "
+                f"nvidia-smi: {nvidia_smi()}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del geom, vg, st0
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k7-only", action="store_true",
@@ -2094,6 +2326,8 @@ def main(argv=None) -> int:
                     help="only sweep K7's variants over depths (k7_depths)")
     ap.add_argument("--campaign-only", action="store_true",
                     help="only build and run phase 7 (phase_campaign)")
+    ap.add_argument("--distributed-only", action="store_true",
+                    help="only build and run phase 8 (phase_distributed)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory holding repro_torch (default: ./src)")
     args = ap.parse_args(argv)
@@ -2118,6 +2352,13 @@ def main(argv=None) -> int:
         res = phase_campaign(float("nan"))
         print(json.dumps({"campaign": {k: v for k, v in res.items()
                                        if k != "launches"}}))
+        print(nvidia_smi())
+        return 0
+
+    if args.distributed_only:
+        log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}")
+        cuda_lib.build()
+        print(json.dumps({"distributed": phase_distributed()}))
         print(nvidia_smi())
         return 0
 
@@ -2168,6 +2409,10 @@ def main(argv=None) -> int:
     # 7. the resilient campaign, float64, against phase 4's bare step
     campaign = phase_campaign(mres64["ms_per_step"])
 
+    # 8. the distributed step, ranks sharing the card, float64
+    dist_res = phase_distributed()
+    print(json.dumps({"distributed": dist_res}))
+
     table = []
     for name, label in TABLE_CASE.items():
         r32, r64 = kres[(name, label, "f32")], kres[(name, label, "f64")]
@@ -2182,10 +2427,14 @@ def main(argv=None) -> int:
             plain_ms_f64=r64["plain_ms"], library_ms_f64=r64["library_ms"],
             max_abs_err_f64=r64["max_abs_err"]))
         if name in PER_STEP:
-            # the launches of phase 5b's 3 counted GBR steps and of phase
-            # 7's fault-free campaign leg (CAMPAIGN_STEPS steps)
+            # the launches of phase 5b's 3 counted GBR steps, of phase
+            # 7's fault-free campaign leg (CAMPAIGN_STEPS steps) and of
+            # phase 8's ranks (every rank of both runs, DIST_STEPS each)
             table[-1]["launches_gbr"] = gbr["launches"][(name, "cuda")]
             table[-1]["launches_campaign"] = campaign["launches"][(name, "cuda")]
+            table[-1]["launches_distributed"] = sum(
+                row["launches_per_rank"][name] * row["ranks"]
+                for row in dist_res.values())
         if name == "block_thomas":
             # the plan's tile, the narrower ones and the global variant
             # at the main path's shape, and the deep case

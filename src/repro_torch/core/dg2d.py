@@ -190,8 +190,8 @@ def run_external(geom: G.Geom2D, b: torch.Tensor, st0: State2D, dt: float,
                  f3d2d_y: Optional[torch.Tensor] = None,
                  coriolis_f: float = 0.0, bottom_cd: float = 0.0,
                  h_min: float = 0.05,
-                 exchange_fn: Optional[Callable[[State2D], State2D]] = None
-                 ) -> ExternalResult:
+                 exchange_fn: Optional[Callable[[State2D], State2D]] = None,
+                 exchange_period: int = 0) -> ExternalResult:
     """Advance the external mode by m sub-steps of dt/m.
 
     Returns the new state, the momentum increment F2D (paper eq. 6)
@@ -201,16 +201,23 @@ def run_external(geom: G.Geom2D, b: torch.Tensor, st0: State2D, dt: float,
     dt * div-flux(Qbar, Fbar_edge), which makes the 3D advection discretely
     consistent to machine precision).
 
-    `exchange_fn` is the distributed runtime's halo hook; the
-    single-device port takes only ``exchange_fn=None``."""
-    if exchange_fn is not None:
-        raise NotImplementedError("distributed halo exchange is not ported yet")
+    Distributed runs pass `exchange_fn` (halo refresh of the 2D state):
+      exchange_period = 0: exchange before every RK-stage RHS (paper §3.3:
+        one halo exchange per 2D kernel iteration; needs a 1-deep halo);
+      exchange_period = j>0: exchange once per j sub-steps (communication-
+        avoiding; needs a 3j-deep halo).  The averages are then taken over
+        each group of j sub-steps first and over the m/j group means after,
+        the JAX package's order of summation.
+    """
     if f3d2d_x is None:
         f3d2d_x = torch.zeros_like(st0.qx)
         f3d2d_y = torch.zeros_like(st0.qy)
     dts = dt / m
+    per_stage = exchange_fn is not None and exchange_period == 0
 
     def rhs(s):
+        if per_stage:
+            s = exchange_fn(s)
         r, eflux = external_rhs(geom, b, s, forcing, f3d2d_x, f3d2d_y, h_min,
                                 return_flux=True)
         if coriolis_f != 0.0 or bottom_cd > 0.0:
@@ -218,20 +225,38 @@ def run_external(geom: G.Geom2D, b: torch.Tensor, st0: State2D, dt: float,
                                          h_min)
         return r, eflux
 
-    s = st0
-    qxs, qys, efs = [], [], []
     w0, w1, w2 = _SSP_W
-    for _ in range(m):
+
+    def substep(s):
         r0, ef0 = rhs(s)
         s1 = s + dts * r0
         r1, ef1 = rhs(s1)
         s2 = 0.75 * s + 0.25 * (s1 + dts * r1)
         r2, ef2 = rhs(s2)
         s3 = (1.0 / 3.0) * s + (2.0 / 3.0) * (s2 + dts * r2)
-        qxs.append(w0 * s.qx + w1 * s1.qx + w2 * s2.qx)
-        qys.append(w0 * s.qy + w1 * s1.qy + w2 * s2.qy)
-        efs.append(w0 * ef0 + w1 * ef1 + w2 * ef2)
-        s = s3
+        return s3, (w0 * s.qx + w1 * s1.qx + w2 * s2.qx,
+                    w0 * s.qy + w1 * s1.qy + w2 * s2.qy,
+                    w0 * ef0 + w1 * ef1 + w2 * ef2)
+
+    s = st0
+    accs = []
+    if exchange_fn is not None and exchange_period > 0:
+        if m % exchange_period:
+            raise ValueError(f"{m} sub-steps are not a multiple of the "
+                             f"exchange period {exchange_period}")
+        for _ in range(m // exchange_period):
+            s = exchange_fn(s)
+            group = []
+            for _ in range(exchange_period):
+                s, acc = substep(s)
+                group.append(acc)
+            accs.append(tuple(sum(a[i] for a in group) / exchange_period
+                              for i in range(3)))
+    else:
+        for _ in range(m):
+            s, acc = substep(s)
+            accs.append(acc)
+    qxs, qys, efs = zip(*accs)
     # paper eq. 6: F2D = (Q1 - (Q0 + dt*F3D2D))/dt with the mass-inverted
     # (nodal-rate) F3D2D
     f2d_x = (s.qx - st0.qx) / dt - G.minv_apply(geom, f3d2d_x)

@@ -15,8 +15,8 @@ vertically explicit steps the turbulence update is performed last).
 The default is the fused horizontal pipeline (`core/horizontal.py`);
 `fused_horizontal=False` runs the per-call path, which recomputes every
 interpolation per call at the lateral qps and launches no lateral-flux
-kernel (the equivalence oracle of the fused one).  The distributed exchange
-hooks are not ported yet and raise.
+kernel (the equivalence oracle of the fused one).  The exchange hooks of
+`step` and `stage` are the distributed runtime's (`distributed/ocean.py`).
 """
 from __future__ import annotations
 
@@ -52,6 +52,7 @@ class OceanConfig:
     nu_v_bg: float = 1e-4        # background vertical viscosity
     kappa_v_bg: float = 1e-5
     use_gls: bool = True
+    halo_exchange_period: int = 0  # 0: per 2D RK stage; j>0: every j substeps
     backend: str = "auto"        # kernel backend (kernels/dispatch.py):
                                  # ref | plain | cuda | auto (auto: cuda on
                                  # CUDA tensors, plain on CPU tensors)
@@ -165,10 +166,16 @@ def stage(geom: G.Geom2D, vg: VGrid, cfg: OceanConfig, st0: OceanState,
 
     turb0 provides the mixing coefficients; turb_base (default turb0) is the
     state the turbulence model is advanced *from*."""
-    if exchange2d is not None or exchange_field is not None:
-        raise NotImplementedError("distributed exchange is not ported yet")
     if turb_base is None:
         turb_base = turb0
+    if exchange_field is not None:
+        # distributed: refresh ghost rings of the evaluation fields (the
+        # external state is refreshed inside run_external)
+        ux_e = exchange_field(ux_e)
+        uy_e = exchange_field(uy_e)
+        T_e = exchange_field(T_e)
+        S_e = exchange_field(S_e)
+        eta_e = exchange_field(eta_e)
     nl = cfg.nl
     vge0 = layer_geometry(vg, st0.ext.eta, cfg.h_min)   # M0 mesh
     vgee = layer_geometry(vg, eta_e, cfg.h_min)         # evaluation mesh
@@ -227,7 +234,8 @@ def stage(geom: G.Geom2D, vg: VGrid, cfg: OceanConfig, st0: OceanState,
     with trace.annotate("stage.external_burst"):
         ext = dg2d.run_external(geom, vg.b, st0.ext, dtau, m_sub,
                                 forcing.forcing2d, f3d2d_x, f3d2d_y,
-                                h_min=cfg.h_min)
+                                h_min=cfg.h_min, exchange_fn=exchange2d,
+                                exchange_period=cfg.halo_exchange_period)
         eta1 = ext.state.eta
         vge1 = layer_geometry(vg, eta1, cfg.h_min)
 
@@ -368,7 +376,8 @@ def step(geom: G.Geom2D, vg: VGrid, cfg: OceanConfig, st: OceanState,
          forcing: Forcing3D = Forcing3D(),
          exchange2d=None, exchange_field=None) -> OceanState:
     """One full internal step: IMEX midpoint (stage 1 implicit over dt/2,
-    stage 2 explicit over dt with midpoint fluxes)."""
+    stage 2 explicit over dt with midpoint fluxes).  The exchange hooks are
+    supplied by the distributed runtime (distributed/ocean.py)."""
     turb0 = turbulence.TurbState(st.turb_k, st.turb_eps, st.nu_t, st.kappa_t)
     with trace.annotate("imex.stage1"):
         s1 = stage(geom, vg, cfg, st, st.ux, st.uy, st.T, st.S, st.ext.eta,

@@ -48,6 +48,12 @@ def external_substeps(mesh: mesh2d.Mesh2D, dt: float,
     return m_2d
 
 
+def basin_mesh(nx: int = 12) -> mesh2d.Mesh2D:
+    """The basin of `setup`: rect_mesh(nx, nx/2) of CELL_M cells, jittered."""
+    return mesh2d.rect_mesh(nx, nx // 2, nx * CELL_M, (nx // 2) * CELL_M,
+                            jitter=0.2, seed=1)
+
+
 def setup(nx: int = 12, nl: int = 6, dtype=torch.float32, device=None):
     """The baroclinic-front case: rect_mesh(nx, nx/2) of ~333 m cells
     (2 nx^2/2 triangles), 20 m deep, nl layers, warm water on the left half,
@@ -55,8 +61,8 @@ def setup(nx: int = 12, nl: int = 6, dtype=torch.float32, device=None):
 
     Returns (geom, vg, cfg, state)."""
     device = default_device(device)
-    lx, ly = nx * CELL_M, (nx // 2) * CELL_M
-    m = mesh2d.rect_mesh(nx, nx // 2, lx, ly, jitter=0.2, seed=1)
+    lx = nx * CELL_M
+    m = basin_mesh(nx)
     geom = geometry.geom2d_from_mesh(m, dtype=dtype, device=device)
     vg = VGrid(b=torch.full((3, m.nt), DEPTH_M, dtype=dtype, device=device),
                nl=nl)

@@ -131,15 +131,19 @@ class JaxCase:
             eos_kind="linear" if "jackett" in off else "jackett",
             coriolis_f=0.0 if "coriolis" in off else -4e-5)
 
-    def run(self, backend="ref", off=()):
+    def step(self, st, backend="ref", off=()):
+        """One jitted step from `st` with its forcing at st.time."""
         cfg = self.cfg(backend, off)
         if cfg not in self._steps:
             self._steps[cfg] = jax.jit(
                 lambda s, f: jstep.step(self.geom, self.vg, cfg, s, f))
+        return self._steps[cfg](st, _jax_forcing(self.nt, st.time, self.ex,
+                                                 off))
+
+    def run(self, backend="ref", off=()):
         st = self.st0
         for _ in range(STEPS):
-            st = self._steps[cfg](st, _jax_forcing(self.nt, st.time, self.ex,
-                                                   off))
+            st = self.step(st, backend, off)
         return _state_np(st)
 
 
@@ -314,3 +318,119 @@ def test_full_size_setup_takes_the_larger_m2d(monkeypatch):
         assert cfg.m_2d == max(20, m_cfl) == (want or m_cfl)
         assert (geom.nt, cfg.nl, cfg.dt) == (nx * nx, 2, 45.0)
         assert float(vg.b.max()) <= 120.0 and vg.b.dtype == torch.float64
+
+
+# ---------------------------------------------------------------------------
+# the one-step amplification of rounding into the GLS fields
+# ---------------------------------------------------------------------------
+GLS_FIELDS = ("turb_k", "turb_eps", "nu_t", "kappa_t")
+AMP_SETS = 10        # seeded node sets, 24 nodes each
+
+
+def _amplification(a, b, x0, x1):
+    """max |field change| over max |field|, per GLS field, over the same
+    relative measure of the input change."""
+    din = np.abs(x1 - x0).max() / np.abs(x0).max()
+    return np.array([_rel(a[k], b[k]) / din for k in GLS_FIELDS])
+
+
+def test_gls_amplification_is_the_models_own(jcase, monkeypatch):
+    """From a developed state (the GBR case after one JAX step), T moved by
+    one ulp at 24 seeded nodes; one step in JAX (ref) and in the port
+    (plain) from the clean and from the perturbed state.  The response to
+    a one-ulp change is rounding noise that swings several-fold with the
+    node set (the test prints each framework's min and max), so each
+    framework's factor is the median over AMP_SETS node sets: the port's
+    median is within 2x of JAX's for every GLS field, which shows the
+    amplification is the model's own.  Then the port's last GLS update of
+    each step (stage 2's, from which the step's GLS fields come) is re-run
+    from the clean run's inputs with one input at a time from the
+    perturbed run, which names the term that carries the change."""
+    from repro_torch.core import turbulence as tturb
+
+    st1 = jcase.step(jcase.st0)
+    d1 = _state_np(st1)
+    T0 = np.array(d1["T"])
+
+    calls = []
+    real = tturb.gls_step
+
+    def spy(ts, m2, n2, dz, dt, *a, **kw):
+        calls.append((ts, m2, n2, dz, dt, kw))
+        return real(ts, m2, n2, dz, dt, *a, **kw)
+    monkeypatch.setattr(tturb, "gls_step", spy)
+    geom, vg, cfg, _, forcing_at = _torch_setup()
+    cfg = dataclasses.replace(cfg, backend="plain")
+
+    def port_step(T):
+        s = convert.state_from_numpy(dict(d1, T=T), device="cpu")
+        s = tstep.step(geom, vg, cfg, s, _torch_forcing(forcing_at, s.time,
+                                                        jcase.ex))
+        return convert.state_to_numpy(s)
+
+    j0, t0 = _state_np(jcase.step(st1)), port_step(T0)
+    clean = calls[1]
+    amp_j, amp_t, swaps, d_in = [], [], [], []
+    for seed in range(AMP_SETS):
+        idx = np.random.default_rng(seed).choice(T0.size, 24, replace=False)
+        T1 = T0.copy()
+        T1.flat[idx] = np.nextafter(T1.flat[idx], np.inf)
+        amp_j.append(_amplification(
+            j0, _state_np(jcase.step(dataclasses.replace(
+                st1, T=jnp.asarray(T1)))), T0, T1))
+        amp_t.append(_amplification(t0, port_step(T1), T0, T1))
+        swaps.append(calls[-1])
+        d_in.append(np.abs(T1 - T0).max() / np.abs(T0).max())
+    med_j, med_t = np.median(amp_j, axis=0), np.median(amp_t, axis=0)
+    print("one-step amplification of a 1-ulp change of T, median over",
+          AMP_SETS, "node sets (min, max):")
+    for name, a, med in (("jax ref", amp_j, med_j),
+                         ("port plain", amp_t, med_t)):
+        print(f"  {name}:", {k: f"{m:.3e} ({lo:.2e}, {hi:.2e})"
+                             for k, m, lo, hi in zip(GLS_FIELDS, med,
+                                                     np.min(a, 0),
+                                                     np.max(a, 0))})
+    for k, a, b in zip(GLS_FIELDS, med_t, med_j):
+        assert b > 1.0, (k, b)
+        assert 0.5 <= a / b <= 2.0, (k, a, b)
+
+    # attribution: swap one input of the stage-2 GLS update at a time
+    ts, m2, n2, dz, dt, kw = clean
+    base = real(ts, m2, n2, dz, dt, **kw)
+    p = tturb.GLSParams()
+
+    def change(out):
+        return np.array([float((o - b).abs().max() / b.abs().max())
+                         for o, b in zip(out, base)])
+    share = {"M2 (shear)": [], "N2 (buoyancy)": [], "dz": []}
+    n2_gain, at_max = [], []
+    for (_, m2p, n2p, dzp, _, _), din in zip(swaps, d_in):
+        full = change(real(ts, m2p, n2p, dzp, dt, **kw))
+        for name, args in (("M2 (shear)", (m2p, n2, dz)),
+                           ("N2 (buoyancy)", (m2, n2p, dz)),
+                           ("dz", (m2, n2, dzp))):
+            share[name].append(change(real(ts, *args, dt, **kw))
+                               / np.maximum(full, 1e-300))
+        n2_gain.append(float((n2p - n2).abs().max() / n2.abs().max()) / din)
+        # the prism whose nu_t moves most: which branch of the update acts
+        out = real(ts, m2, n2p, dz, dt, **kw)
+        j = np.unravel_index(int((out.nu_t - base.nu_t).abs().argmax()),
+                             tuple(base.nu_t.shape))
+        e_lim = (p.c_mu0 ** 3) * out.k[j] * float(
+            max(float(n2p[j]), 0.0) / p.galperin) ** 0.5
+        at_max.append(dict(n2_negative=float(n2[j]) < 0.0,
+                           galperin=bool(out.eps[j] == e_lim),
+                           clamped=float(out.nu_t[j]) in (p.nu_min,
+                                                          p.nu_max)))
+    med = {k: np.median(v, axis=0) for k, v in share.items()}
+    dominant = max(med, key=lambda n: med[n].min())
+    print("stage-2 GLS update, each input alone: median share of the change "
+          "all three make:", {k: np.round(v, 3).tolist()
+                              for k, v in med.items()})
+    print(f"N2's own change over T's (both relative to their max): median "
+          f"{np.median(n2_gain):.3e}")
+    print("at the prism whose nu_t moves most, over the node sets:",
+          {k: sum(a[k] for a in at_max) for k in at_max[0]}, "of",
+          len(at_max))
+    print("dominant term:", dominant)
+    assert med[dominant].min() >= 0.5, med

@@ -1,8 +1,9 @@
 """The PyTorch port imports nothing of JAX and nothing of the JAX package.
 
 Every module of `repro_torch` (the runtime's checkpoint, chaos, runners,
-data pipeline, campaign launcher, chaos smoke and timing helper among
-them), `chip_smoke.py` (imported, not run) and the `obs_smoke` entry point
+data pipeline, campaign launcher, chaos smoke and timing helper, and the
+distributed runtime's partition, halo exchange, ocean, spawn helper and
+ocean cells among them), `chip_smoke.py` (imported, not run) and the `obs_smoke` entry point
 are imported in a fresh interpreter in which a
 meta-path finder refuses `jax`, `jaxlib` and `repro`; the test then checks
 that none of them reached `sys.modules`.
@@ -19,7 +20,9 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 RUNTIME = ("tree", "checkpoint.checkpoint", "runtime.chaos",
            "runtime.fault_tolerance", "data.pipeline", "launch.sim_campaign",
-           "chaos_smoke", "benchmarks.common")
+           "chaos_smoke", "benchmarks.common", "distributed.partition",
+           "distributed.halo", "distributed.ocean", "distributed.spawn",
+           "launch.ocean_dryrun")
 
 SCRIPT = textwrap.dedent(r"""
     import importlib, importlib.util, pkgutil, sys

@@ -165,11 +165,42 @@ def test_uniform_tracer_stays_uniform():
     assert float(st.ux.abs().max()) > 1e-6
 
 
-def test_unported_paths_raise(case):
-    """The distributed exchange hooks are not ported yet (the per-call
-    horizontal path is: tests/test_torch_core_rest.py)."""
+def _identity_hooks():
+    return dict(exchange2d=lambda s: s, exchange_field=lambda f: f)
+
+
+def test_identity_hooks_per_stage_are_bitwise(case):
+    """The exchange hooks at period 0 (before every 2D RK stage and on the
+    stage's evaluation fields), as identities, leave the step bitwise as
+    it is without them."""
     _, _, _, tg, tvg, d = case
+    _, cfg = _cfgs("ref", "plain")
+    a = _run_torch(tg, tvg, cfg, d)
     st = convert.state_from_numpy(d, device="cpu")
-    cfg = tstep.OceanConfig(nl=3, dt=20.0, m_2d=4)
-    with pytest.raises(NotImplementedError):
-        tstep.step(tg, tvg, cfg, st, exchange2d=lambda s: s)
+    for _ in range(STEPS):
+        st = tstep.step(tg, tvg, cfg, st, **_identity_hooks())
+    for k in FIELDS:
+        assert torch.equal(getattr(st, k), getattr(a, k)), k
+    assert torch.equal(st.ext.eta, a.ext.eta)
+
+
+def test_identity_hooks_comm_avoiding_match_jax(case):
+    """Period 2 (the 2D state exchanged once every 2 sub-steps, the burst
+    averaged over each pair first): the port with identity hooks against
+    JAX with identity hooks, both periods 2, ref backends."""
+    geom, vg, st, tg, tvg, d = case
+    jcfg, tcfg = _cfgs("ref", "ref")
+    jcfg = dataclasses.replace(jcfg, halo_exchange_period=2)
+    tcfg = dataclasses.replace(tcfg, halo_exchange_period=2)
+    step = jax.jit(lambda s: jstep.step(geom, vg, jcfg, s,
+                                        **_identity_hooks()))
+    jst = st
+    for _ in range(STEPS):
+        jst = step(jst)
+    tst = convert.state_from_numpy(d, device="cpu")
+    for _ in range(STEPS):
+        tst = tstep.step(tg, tvg, tcfg, tst, **_identity_hooks())
+    _assert_match(jst, tst)
+    # the period changes the burst's averaging order, not the answer
+    plain = _run_torch(tg, tvg, tcfg, d)
+    assert not torch.equal(plain.ux, tst.ux)
