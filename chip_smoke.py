@@ -6,6 +6,7 @@
     python3 chip_smoke.py --k7-depths             # K7's variants over depths
     python3 chip_smoke.py --campaign-only         # the build and phase 7
     python3 chip_smoke.py --distributed-only      # the build and phase 8
+    python3 chip_smoke.py --serve-only            # the build and phase 9
 
 With --k7-only, K7 through the default call of the repro_torch found in
 DIR (an earlier checkout's, to time two kernels in one run), by the three
@@ -13,8 +14,9 @@ methods of phase 3; with --k7-depths, both of K7's variants at depths
 around the plan's switch to global (the source of tridiag.MIN_BLOCKS);
 with --campaign-only, the build and phase 7 (phase 4's bare step is not
 run, so the runner's overhead over it is not printed); with
---distributed-only, the build and phase 8.  Each prints its lines, a JSON
-line and the card's name and power limit.
+--distributed-only, the build and phase 8; with --serve-only, the build
+and phase 9.  Each prints its lines, a JSON line and the card's name and
+power limit.
 Phases of the run with no arguments:
 
 (each prints its own lines; any failure raises and exits non-zero):
@@ -185,15 +187,34 @@ Phases of the run with no arguments:
                 (the slowest rank's, between barriers) beside the
                 single-device cuda and ref steps'.  These ranks time-share
                 one card and stage every exchange through the host: their
-                ms is a record of this path, not a scaling figure.
+                ms is a record of this path, not a scaling figure;
+  9. serve    — the LM serving path (`repro_torch.models`,
+                `repro_torch.launch.serve`) at the full width and depth of
+                olmo-1b (16 layers, d 2048, K9 at d 128, causal) and
+                rwkv6-3b (32 layers, d 2560, 40 heads of 64, K8), with the
+                port's seeded parameters, in float32 and then bfloat16,
+                under `torch.inference_mode()`: `Model.prefill` of 4 x 1024
+                seeded tokens through `auto` (K9 once an attention layer,
+                K8 once an RWKV layer, counted, the registry's cuda
+                dispatches equal), against `plain` on the card; then
+                `serve.generate` (the 1024 prompt tokens stepped through
+                `decode_step`, then 32 greedy tokens), which must launch
+                neither kernel, its last prompt-step logits against the
+                prefill's; both held to SERVE_TOL of max |logit| (1e-3 in
+                float32, 5e-2 in bfloat16); then 3 timed prefills.  Prints
+                prefill ms and tokens/s, decode ms a token and tokens/s at
+                batch 4 (min and max over the 32 steps), peak memory, the
+                phase's seconds and the card's name and power limit.
 
 The line before the last is the card's `nvidia-smi` name and power limit;
-the line before that is the JSON kernel table; the last line is
+the line before that is the JSON kernel table (K8's and K9's `launches`
+are phase 9's float32 prefills'); the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -1813,11 +1834,17 @@ def phase_model(ptxas: dict) -> dict:
     return dict(results=results, launches=path)
 
 
-def model_rows(model: dict) -> list:
+def model_rows(model: dict, serve: dict) -> list:
     """The K8 and K9 rows of the kernel table: the float32 and bfloat16
-    numbers of MODEL_TABLE_CASE, with every case's numbers under `cases`."""
+    numbers of MODEL_TABLE_CASE, with every case's numbers under `cases`.
+    `launches` is the main path's: phase 9's float32 prefill of the model
+    that runs the kernel (`launches_serve`: every prefill of phase 9;
+    `launches_kernel_phase`: phase 6's calls)."""
     rows = []
     for name, cname in MODEL_TABLE_CASE.items():
+        on_path = {key: n for key, row in serve.items()
+                   for k, n in row["launches"].items() if k == f"{name}/cuda"}
+        main_key = next(k for k in on_path if k.endswith("/f32"))
         r32 = model["results"][(cname, "f32")]
         r16 = model["results"][(cname, "bf16")]
         cases = {c: {dt: {k: model["results"][(c, dt)][k] for k in
@@ -1829,7 +1856,9 @@ def model_rows(model: dict) -> list:
                  if (case["op"] == "wkv6") == (name == "wkv6")}
         rows.append(dict(
             name=name, route="cuda", source=MODEL_SOURCE[name],
-            replaces=REPLACES[name], launches=model["launches"][(name, "cuda")],
+            replaces=REPLACES[name], launches=on_path[main_key],
+            launches_path=main_key, launches_serve=on_path,
+            launches_kernel_phase=model["launches"][(name, "cuda")],
             max_abs_err=r32["max_abs_err"], ms=r32["ms"],
             plain_ms=r32["plain_ms"], bound_ms=r32["bound_ms"],
             bound_by=r32["bound_by"], library_ms=r32["library_ms"],
@@ -2318,6 +2347,261 @@ def phase_distributed() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the LM serving path at full width and depth
+# ---------------------------------------------------------------------------
+SERVE_ARCHS = ("olmo-1b", "rwkv6-3b")   # configs/archs.py, full size
+SERVE_B, SERVE_T, SERVE_GEN = 4, 1024, 32
+SERVE_PREFILL_REPS = 3      # timed prefills after the counted one
+# last-token logits, of max |logit|: cuda against plain, and serve's
+# decode-stepped prompt against cuda prefill.  float32: the kernels' and the
+# decode path's summation orders; bfloat16: phase 6's 2e-2 of one op,
+# compounded over 16 or 32 layers.  A model whose own floor (below) is
+# higher is held to SERVE_FLOOR_MARGIN times its floor instead
+SERVE_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+# the model's floor: the largest change of the cuda prefill's last-token
+# logits, of max |logit|, when every attention / WKV output is multiplied
+# by (1 + SERVE_NOISE N(0, 1)) in float32, over SERVE_FLOOR_DRAWS draws.
+# 2^-23 is no larger than K8's difference from its plain version on the
+# model path's inputs (1.1e-7 to 1.8e-7 of max |out| at rwkv6-3b, NVIDIA
+# H100 80GB HBM3 at 700 W); the seeded rwkv6-3b amplifies it to ~0.11 of
+# max |logit| in bfloat16 (PERF.md, section 6)
+SERVE_NOISE = 2.0 ** -23
+SERVE_FLOOR_DRAWS = 3
+SERVE_FLOOR_MARGIN = 2.0
+# the op and the kernel each family's prefill runs, by its mixer
+SERVE_KERNEL = {"attn": ("attention", "flash_attention"), "rwkv": ("wkv6", "wkv6")}
+
+
+def logit_share(out, ref) -> float:
+    """max |out - ref| over max |ref|."""
+    ref = ref.float()
+    return float((out.float() - ref).abs().max() / ref.abs().max())
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class PeakMemory:
+    """Peak allocated device memory from its creation to `read` (0 off the
+    card)."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def read(self) -> int:
+        sync(self.dev)
+        return (torch.cuda.max_memory_allocated(self.dev)
+                if self.dev.type == "cuda" else 0)
+
+
+@contextlib.contextmanager
+def tapped_model_ops(calls=None, noise=0.0, gen=None):
+    """While active, `ops.wkv6` and `ops.attention` (which the models call
+    through the module) append (op, args, kwargs) to ``calls`` and multiply
+    each output by (1 + noise N(0, 1)) in float32."""
+    from repro_torch.kernels import ops
+    orig = {"wkv6": ops.wkv6, "attention": ops.attention}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            if calls is not None:
+                calls.append((name, args, kwargs))
+            out = fn(*args, **kwargs)
+            if noise:
+                eps = torch.randn(out.shape, generator=gen, device=out.device)
+                out = (out.float() * (1.0 + noise * eps)).to(out.dtype)
+            return out
+        return call
+    try:
+        for name, fn in orig.items():
+            setattr(ops, name, wrap(name, fn))
+        yield
+    finally:
+        for name, fn in orig.items():
+            setattr(ops, name, fn)
+
+
+def hold_path_calls(calls: list, what: str) -> float:
+    """Each recorded model-path call once more through the kernel and the
+    plain version on its own inputs (not counted), held as phase 6 holds
+    them (model_held); returns the largest share of the limit."""
+    from repro_torch.kernels import ops
+    worst = 0.0
+    for i, (name, args, kwargs) in enumerate(calls):
+        kw = {k: v for k, v in kwargs.items() if k != "backend"}
+        fn = getattr(ops, name)
+        out = fn(*args, backend="cuda", **kw)
+        ref = fn(*args, backend="plain", **kw)
+        err, share = model_held(out, ref, out.dtype)
+        if not share <= 1.0:
+            raise AssertionError(f"{what}: {name} call {i} on the model path's "
+                                 f"inputs differs from plain by {err:.3e}, "
+                                 f"{share:.3f} of its limit")
+        worst = max(worst, share)
+    return worst
+
+
+def phase_serve(configs: dict, device="cuda") -> dict:
+    """Each config of ``configs`` ({name: ArchConfig}) in float32, then
+    bfloat16, with the port's seeded parameters: `Model.prefill` of SERVE_B
+    x SERVE_T seeded tokens on `auto` (the kernels on the card), counted,
+    every kernel call of it held again against the plain version on its
+    own inputs, the whole prefill against `plain`; then `serve.generate`
+    (the prompt stepped through decode_step, SERVE_GEN greedy tokens),
+    counted, its last prompt-step logits against the prefill's; the model's
+    floor (SERVE_NOISE); then SERVE_PREFILL_REPS timed prefills.  Peak
+    memory is read over the decode loop and over the timed prefills.
+    Everything under `torch.inference_mode()`."""
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.obs import metrics
+
+    dev = torch.device(device)
+    bk = dispatch.resolve_model(None, dev).value
+    res = {}
+    for name, arch in configs.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            t_phase = time.perf_counter()
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            model = Model(arch, dtype=dtype, device=dev)
+            plain = Model(arch, dtype=dtype, device=dev, backend="plain")
+            mixers = [sub.mixer for sub in model.program]
+            kernels = {SERVE_KERNEL[m] for m in mixers if m in SERVE_KERNEL}
+            if len(kernels) != 1:
+                raise AssertionError(f"{name}: prefill runs {kernels}")
+            (op, kernel), = kernels
+            n_kernel = model.n_super * sum(m in SERVE_KERNEL for m in mixers)
+            params = model.init(SEED)
+            g = torch.Generator(device=dev).manual_seed(SEED + 1)
+            toks = torch.randint(0, arch.vocab, (SERVE_B, SERVE_T), generator=g,
+                                 device=dev)
+            batch = {"tokens": toks}
+            calls = []
+            with torch.inference_mode():
+                metrics.reset()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                with tapped_model_ops(calls):
+                    last = model.prefill(params, batch)
+                sync(dev)
+                first_ms = (time.perf_counter() - t0) * 1e3
+                launches = dict(ops.LAUNCHES)
+                if launches != {(kernel, bk): n_kernel}:
+                    raise AssertionError(f"{name} {dt} prefill: launches "
+                                         f"{launches} != {n_kernel} {kernel}")
+                check_dispatches(launches)
+                if len(calls) != n_kernel:
+                    raise AssertionError(f"{name} {dt}: {len(calls)} calls "
+                                         f"recorded, {n_kernel} launched")
+                path_share = (hold_path_calls(calls, f"{name} {dt}")
+                              if bk == "cuda" else 0.0)
+                del calls
+                ops.reset_launches()
+                ref = plain.prefill(params, batch)
+                if dict(ops.LAUNCHES) != {(kernel, "plain"): n_kernel}:
+                    raise AssertionError(f"{name} {dt} plain prefill: "
+                                         f"launches {dict(ops.LAUNCHES)}")
+                vs_plain = logit_share(last, ref)
+                del ref
+                gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+                floors = []
+                for _ in range(SERVE_FLOOR_DRAWS):
+                    with tapped_model_ops(noise=SERVE_NOISE, gen=gen):
+                        floors.append(logit_share(model.prefill(params, batch),
+                                                  last))
+            metrics.reset()
+            ops.reset_launches()
+            peak = PeakMemory(dev)
+            out = serve.generate(model, params, toks, SERVE_GEN)
+            peak_serve = peak.read()
+            if dict(ops.LAUNCHES):
+                raise AssertionError(f"{name} {dt} decode loop: launches "
+                                     f"{dict(ops.LAUNCHES)} (decode is plain "
+                                     f"torch)")
+            check_dispatches({})
+            vs_prefill = logit_share(out["logits"], last)
+            finite = bool(torch.isfinite(last).all()) and bool(
+                torch.isfinite(out["last_logits"]).all())
+            if not finite or tuple(last.shape) != (SERVE_B, arch.vocab):
+                raise AssertionError(f"{name} {dt}: logits {tuple(last.shape)}"
+                                     f", finite {finite}")
+            floor = max(floors)
+            tol = max(SERVE_TOL[dtype], SERVE_FLOOR_MARGIN * floor)
+            if not (vs_plain <= tol and vs_prefill <= tol):
+                raise AssertionError(f"{name} {dt}: cuda against plain "
+                                     f"{vs_plain:.3e}, decode against prefill "
+                                     f"{vs_prefill:.3e} (limit {tol:.3e}; "
+                                     f"floor {floor:.3e})")
+            prefill_ms = []
+            peak = PeakMemory(dev)
+            with torch.inference_mode():
+                for _ in range(SERVE_PREFILL_REPS):
+                    sync(dev)
+                    t0 = time.perf_counter()
+                    model.prefill(params, batch)
+                    sync(dev)
+                    prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            peak_prefill = peak.read()
+            step_ms = [s * 1e3 for s in out["step_s"]]
+            mean_ms = sum(prefill_ms) / len(prefill_ms)
+            dec_ms = sum(step_ms) / len(step_ms)
+            row = dict(
+                launches={f"{kernel}/{bk}": n_kernel}, decode_launches=0,
+                path_calls_limit_share=path_share,
+                vs_plain=vs_plain, vs_prefill=vs_prefill, floor=floor,
+                floors=floors, tol=tol,
+                prefill_first_ms=first_ms, prefill_ms=mean_ms,
+                prefill_ms_min=min(prefill_ms), prefill_ms_max=max(prefill_ms),
+                prefill_tok_s=SERVE_B * SERVE_T / mean_ms * 1e3,
+                prompt_stepped_s=out["prefill_s"],
+                decode_ms=dec_ms, decode_ms_min=min(step_ms),
+                decode_ms_max=max(step_ms),
+                decode_tok_s=SERVE_B / dec_ms * 1e3,
+                decode_tok_s_min=SERVE_B / max(step_ms) * 1e3,
+                decode_tok_s_max=SERVE_B / min(step_ms) * 1e3,
+                peak_prefill_bytes=peak_prefill, peak_serve_bytes=peak_serve,
+                ids=[int(x) for x in out["ids"][0][:10]],
+                seconds=time.perf_counter() - t_phase)
+            res[f"{name}/{dt}"] = row
+            log(f"serve {name} {dt} (B {SERVE_B}, prompt {SERVE_T}, gen "
+                f"{SERVE_GEN}, {arch.n_layers} layers, d {arch.d_model}): "
+                f"prefill launches {kernel}/{bk} {n_kernel}, decode loop 0; "
+                f"each {kernel} call of the prefill against plain on its "
+                f"inputs: {path_share:.3f} of its limit at most; last-token "
+                f"logits cuda against plain {vs_plain:.3e}, decode-stepped "
+                f"against prefill {vs_prefill:.3e}, limit {tol:.3e} of max "
+                f"|logit| (the model's floor {floor:.3e}: "
+                f"{[float(f'{f:.3e}') for f in floors]}); prefill ms "
+                f"{mean_ms:.3f} (min {min(prefill_ms):.3f}, max "
+                f"{max(prefill_ms):.3f}; first {first_ms:.3f}), "
+                f"{row['prefill_tok_s']:.1f} tok/s; decode ms a token "
+                f"{dec_ms:.3f} (min {min(step_ms):.3f}, max "
+                f"{max(step_ms):.3f}), {row['decode_tok_s']:.1f} tok/s at "
+                f"batch {SERVE_B} (min {row['decode_tok_s_min']:.1f}, max "
+                f"{row['decode_tok_s_max']:.1f}); prompt stepped through "
+                f"decode {out['prefill_s']:.2f} s; peak memory prefill "
+                f"{peak_prefill / 2**30:.3f} GiB, serve "
+                f"{peak_serve / 2**30:.3f} GiB; sample ids {row['ids']}; "
+                f"{row['seconds']:.1f} s; nvidia-smi: "
+                f"{nvidia_smi() if dev.type == 'cuda' else 'not measured'}")
+            del model, plain, params, last, out
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return res
+
+
+def serve_configs() -> dict:
+    from repro_torch.configs import get_arch
+    return {name: get_arch(name) for name in SERVE_ARCHS}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k7-only", action="store_true",
@@ -2328,6 +2612,8 @@ def main(argv=None) -> int:
                     help="only build and run phase 7 (phase_campaign)")
     ap.add_argument("--distributed-only", action="store_true",
                     help="only build and run phase 8 (phase_distributed)")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="only build and run phase 9 (phase_serve)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory holding repro_torch (default: ./src)")
     args = ap.parse_args(argv)
@@ -2359,6 +2645,16 @@ def main(argv=None) -> int:
         log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}")
         cuda_lib.build()
         print(json.dumps({"distributed": phase_distributed()}))
+        print(nvidia_smi())
+        return 0
+
+    if args.serve_only:
+        log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}")
+        cuda_lib.build()
+        t0 = time.perf_counter()
+        serve_res = phase_serve(serve_configs())
+        log(f"serve: phase 9 in {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"serve": serve_res}))
         print(nvidia_smi())
         return 0
 
@@ -2412,6 +2708,12 @@ def main(argv=None) -> int:
     # 8. the distributed step, ranks sharing the card, float64
     dist_res = phase_distributed()
     print(json.dumps({"distributed": dist_res}))
+
+    # 9. the LM serving path, olmo-1b and rwkv6-3b at full width and depth
+    t0 = time.perf_counter()
+    serve_res = phase_serve(serve_configs())
+    log(f"serve: phase 9 in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"serve": serve_res}))
 
     table = []
     for name, label in TABLE_CASE.items():
@@ -2470,7 +2772,7 @@ def main(argv=None) -> int:
             table[-1]["cases"] = cases
             table[-1]["sass"] = {v: n for v, n in sass.items()
                                  if v.startswith(name)}
-    for row in model_rows(model):
+    for row in model_rows(model, serve_res):
         if row["name"] == "flash_attention":
             row["sass"] = sass
         table.append(row)

@@ -7,6 +7,13 @@ package's dataclasses (`Geom2D`, `VGrid`, `OceanState` with its nested
     st = state_from_numpy(d, device="cpu")
     d = state_to_numpy(st)
     forcing = forcing_from_numpy({"tau_x": ..., "forcing2d": {...}})
+
+and an LM's parameter tree (`models.model.Model.init`'s, JAX's
+`Model.init`'s) as the nested dict of numpy arrays that
+`jax.tree_util.tree_map(np.asarray, params)` gives:
+
+    params = lm_params_from_numpy(tree, device="cpu")
+    tree = lm_params_to_numpy(params)
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from .core.dg2d import Forcing2D, State2D
 from .core.extrusion import VGrid
 from .core.geometry import Geom2D
 from .core.stepper import Forcing3D, OceanState
+from . import tree as _tree
 from .kernels.dispatch import default_device
 
 _INDEX_FIELDS = ("ext_tri", "ext_na", "ext_nb")
@@ -76,3 +84,34 @@ def forcing_from_numpy(d: dict, device=None) -> Forcing3D:
     return Forcing3D(forcing2d=Forcing2D(**fields(Forcing2D,
                                                   d.get("forcing2d") or {})),
                      **fields(Forcing3D, d))
+
+
+def _bfloat16_leaf(x: np.ndarray) -> torch.Tensor:
+    """A numpy bfloat16 array (ml_dtypes', which JAX exports) by its bits."""
+    return torch.from_numpy(np.array(x, order="C").view(np.int16)).view(
+        torch.bfloat16)
+
+
+def lm_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
+    """The port's parameter tree from JAX's, leaf for leaf: the same nested
+    dict keys (paths spelled as `tree.key_name` spells them, e.g.
+    ``blocks/sub0/attn/wq``), shapes and dtypes, bfloat16 included.
+    ``dtype`` casts every floating leaf to it (None: each leaf keeps its
+    own)."""
+    device = default_device(device)
+
+    def leaf(x):
+        x = np.asarray(x)
+        t = (_bfloat16_leaf(x).to(device) if x.dtype.name == "bfloat16"
+             else _tensor(x, device))
+        return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+    return _tree.map_leaves(leaf, tree)
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """JAX's nested dict of numpy arrays from the port's parameter tree;
+    bfloat16 leaves become float32 (exact), as numpy has no bfloat16."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return _tree.map_leaves(leaf, params)

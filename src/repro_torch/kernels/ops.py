@@ -228,6 +228,16 @@ def cell_to_soa(x, nt, backend: dispatch.BackendLike = None):
 # ---------------------------------------------------------------------------
 # model kernels (the JAX package's `ops.py:219-240`)
 # ---------------------------------------------------------------------------
+def _forward_only(op: str, *ts) -> None:
+    """K8 and K9 have no backward, like their Pallas originals: refuse
+    inputs that autograd would need a gradient of, rather than return an
+    output that silently has none."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(f"ops.{op}: the CUDA kernel is forward only; "
+                           f"inputs that require grad need backend 'plain' "
+                           f"or 'ref', or run under torch.no_grad()")
+
+
 def wkv6(r, k, v, w, u, backend: dispatch.BackendLike = None):
     """RWKV6 recurrence: r, k, w (BH, T, K); v (BH, T, V); u (K,) or (H, K)."""
     bk = dispatch.resolve_model(backend, r.device)
@@ -236,6 +246,7 @@ def wkv6(r, k, v, w, u, backend: dispatch.BackendLike = None):
             return _ref.wkv6(r, k, v, w, u)
         if bk is Backend.PLAIN:
             return _wkv6.wkv6_plain(r, k, v, w, u)
+        _forward_only("wkv6", r, k, v, w, u)
         return _wkv6.wkv6(*(t.contiguous() for t in (r, k, v, w, u)))
 
 
@@ -250,6 +261,7 @@ def attention(q, k, v, causal=True, window=None, softcap=None,
         if bk is Backend.PLAIN:
             return flash_attention.flash_attention_plain(
                 q, k, v, causal=causal, window=window, softcap=softcap)
+        _forward_only("attention", q, k, v)
         return flash_attention.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
             window=window, softcap=softcap)

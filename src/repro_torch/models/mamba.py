@@ -1,0 +1,113 @@
+"""Mamba (S6) block for the jamba hybrid architecture (the JAX package's
+`models/mamba.py`), in plain torch: JAX computes it outside any Pallas
+kernel.
+
+Selective SSM with data-dependent (dt, B, C).  Prefill scans the tokens in
+order; decode keeps (conv_state, ssm_state) per layer, O(1) per token.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from .layers import Draw
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaCfg:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+
+    def d_inner(self, d_model):
+        return self.expand * d_model
+
+
+def mamba_params(draw: Draw, d_model, cfg: MambaCfg, dtype=torch.bfloat16):
+    di = cfg.d_inner(d_model)
+    sc = 1.0 / (d_model ** 0.5)
+    dt_rank = max(d_model // 16, 1)
+    f32 = torch.float32
+    a_log = torch.log(torch.arange(1, cfg.d_state + 1, dtype=f32))
+    return {
+        "w_in": draw.normal((d_model, 2 * di), sc, dtype),
+        "conv_w": draw.normal((cfg.d_conv, di), 0.2, dtype),
+        "conv_b": draw.full((di,), 0.0, dtype),
+        "w_xdt": draw.normal((di, dt_rank), sc, dtype),
+        "w_dt": draw.normal((dt_rank, di), 0.1, dtype),
+        "dt_bias": draw.full((di,), -4.0, f32),      # softplus -> small dt
+        "w_B": draw.normal((di, cfg.d_state), sc, dtype),
+        "w_C": draw.normal((di, cfg.d_state), sc, dtype),
+        "A_log": draw.const(a_log[None, :].repeat(di, 1)),   # (di, N)
+        "D": draw.full((di,), 1.0, f32),
+        "w_out": draw.normal((di, d_model), 1.0 / (di ** 0.5), dtype),
+    }
+
+
+def _ssm_scan(u, dt, B, C, A, D):
+    """u, dt: (Bt, T, di); B, C: (Bt, T, N); A: (di, N); D: (di,).
+
+    h_t = exp(dt*A) h_{t-1} + dt*B_t*u_t ; y_t = (C_t . h_t) + D*u_t
+
+    The per-token recurrence of JAX's default chunked scan: its chunks are
+    `jax.checkpoint` boundaries that bound the backward's memory and leave
+    each step's arithmetic as it is, so the forward is one loop over T
+    (and T needs to be no multiple of a chunk)."""
+    Bt, T, di = u.shape
+    h = u.new_zeros((Bt, di, A.shape[1]), dtype=torch.float32)
+    ys = []
+    for t in range(T):
+        dtt, ut = dt[:, t], u[:, t]
+        dA = torch.exp(dtt[..., None] * A[None])          # (Bt, di, N)
+        h = dA * h + (dtt * ut)[..., None] * B[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
+    return torch.stack(ys, dim=1) + D[None, None] * u
+
+
+def _dt_b_c(p, u):
+    """dt, B and C from the float32 activations u."""
+    dt = F.softplus((u @ p["w_xdt"].float()) @ p["w_dt"].float() + p["dt_bias"])
+    return dt, u @ p["w_B"].float(), u @ p["w_C"].float()
+
+
+def mamba_apply(p, x, cfg: MambaCfg):
+    """Train/prefill: x (B, T, D) -> (B, T, D)."""
+    B, T, D = x.shape
+    di = cfg.d_inner(D)
+    xi, z = (x @ p["w_in"]).chunk(2, dim=-1)             # (B, T, di) each
+    # causal depthwise conv, summed in JAX's order
+    xpad = torch.cat([xi.new_zeros((B, cfg.d_conv - 1, di)), xi], dim=1)
+    conv = sum(xpad[:, k:k + T, :] * p["conv_w"][k][None, None]
+               for k in range(cfg.d_conv)) + p["conv_b"]
+    u = F.silu(conv).float()
+    dt, Bm, Cm = _dt_b_c(p, u)
+    A = -torch.exp(p["A_log"])
+    y = _ssm_scan(u, dt, Bm, Cm, A, p["D"])
+    return (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+
+
+def mamba_decode(p, x, state, cfg: MambaCfg):
+    """Single-token decode. x (B, 1, D); state = (conv_state (B, d_conv-1, di),
+    ssm_state (B, di, N)). Returns (out, new_state)."""
+    xi, z = (x[:, 0] @ p["w_in"]).chunk(2, dim=-1)       # (B, di)
+    conv_state, h = state
+    xc = torch.cat([conv_state, xi[:, None]], dim=1)     # (B, d_conv, di)
+    conv = (xc * p["conv_w"][None]).sum(dim=1) + p["conv_b"]
+    u = F.silu(conv).float()                              # (B, di)
+    dt, Bm, Cm = _dt_b_c(p, u)
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt[..., None] * A[None])               # (B, di, N)
+    h = dA * h + (dt * u)[..., None] * Bm[:, None, :]
+    y = torch.einsum("bdn,bn->bd", h, Cm) + p["D"][None] * u
+    out = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+    return out[:, None], (xc[:, 1:], h)
+
+
+def init_mamba_state(batch, d_model, cfg: MambaCfg, dtype=torch.bfloat16,
+                     device="cpu"):
+    di = cfg.d_inner(d_model)
+    return (torch.zeros((batch, cfg.d_conv - 1, di), dtype=dtype, device=device),
+            torch.zeros((batch, di, cfg.d_state), dtype=torch.float32,
+                        device=device))

@@ -746,3 +746,58 @@ def test_campaign_poison_leg_bitwise(cuda, tmp_path):
     out, runner = _campaign_leg(case, tmp_path, "nan", plan=plan)
     assert len(plan.log) == 1 and runner.stats["retries"] == 1
     assert bitwise_equal(out, base)
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path: a reduced model's forward through K9 / K8 on the card
+# ---------------------------------------------------------------------------
+# logits of the cuda forward against the plain one, of max |logit|
+LM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+LM_KERNEL = {"olmo-1b": ("attention", "flash_attention"),
+             "rwkv6-3b": ("wkv6", "wkv6")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(LM_KERNEL))
+def test_lm_forward_cuda_matches_plain(cuda, name, dtype):
+    """A reduced model's forward on `auto` (the kernel, once a layer; the
+    registry's cuda dispatches equal) against `plain` on the card; a decode
+    step launches neither kernel."""
+    from repro_torch.configs import get_arch, reduce_arch
+    from repro_torch.models.model import Model
+    arch = reduce_arch(get_arch(name))
+    model = Model(arch, dtype=dtype, device=cuda)
+    params = model.init(0)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, arch.vocab, (2, 64), generator=g, device=cuda)
+    op, kernel = LM_KERNEL[name]
+    metrics.reset()
+    ops.reset_launches()
+    with torch.inference_mode():
+        logits, _ = model.forward(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert dict(ops.LAUNCHES) == {(kernel, "cuda"): arch.n_layers}
+    counters = metrics.default().snapshot()["counter"]
+    assert counters[f"kernel_dispatch{{backend=cuda,op={op}}}"] == arch.n_layers
+    plain = Model(arch, dtype=dtype, device=cuda, backend="plain")
+    with torch.inference_mode():
+        ref, _ = plain.forward(params, {"tokens": toks})
+        ops.reset_launches()
+        cache = model.init_cache(2, 4)
+        model.decode_step(params, cache, toks[:, :1], 0)
+    assert not any(k[1] == "cuda" for k in ops.LAUNCHES)
+    scale = float(ref.float().abs().max())
+    assert float((logits.float() - ref.float()).abs().max()) <= LM_TOL[dtype] * scale
+
+
+def test_model_kernels_refuse_grad_on_cuda(cuda):
+    """K8 and K9 are forward only: inputs that require grad raise on the
+    cuda backend instead of returning an output without a gradient."""
+    q = torch.randn(2, 64, 16, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ops.attention(q, q, q)
+    r = torch.rand(2, 8, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ops.wkv6(r, r, r, r, torch.zeros(64, device=cuda))
+    with torch.no_grad():
+        assert ops.attention(q, q, q).shape == q.shape

@@ -1,9 +1,9 @@
 """The PyTorch port imports nothing of JAX and nothing of the JAX package.
 
 Every module of `repro_torch` (the runtime's checkpoint, chaos, runners,
-data pipeline, campaign launcher, chaos smoke and timing helper, and the
+data pipeline, campaign launcher, chaos smoke and timing helper, the
 distributed runtime's partition, halo exchange, ocean, spawn helper and
-ocean cells among them), `chip_smoke.py` (imported, not run) and the `obs_smoke` entry point
+ocean cells, and the LM configs, models and serving launcher among them), `chip_smoke.py` (imported, not run) and the `obs_smoke` entry point
 are imported in a fresh interpreter in which a
 meta-path finder refuses `jax`, `jaxlib` and `repro`; the test then checks
 that none of them reached `sys.modules`.
@@ -23,6 +23,10 @@ RUNTIME = ("tree", "checkpoint.checkpoint", "runtime.chaos",
            "chaos_smoke", "benchmarks.common", "distributed.partition",
            "distributed.halo", "distributed.ocean", "distributed.spawn",
            "launch.ocean_dryrun")
+# the LM serving path: configs, models and the serving launcher
+LM = ("configs", "configs.base", "configs.archs", "models", "models.layers",
+      "models.attention", "models.rwkv", "models.mamba", "models.moe",
+      "models.model", "launch.serve")
 
 SCRIPT = textwrap.dedent(r"""
     import importlib, importlib.util, pkgutil, sys
@@ -64,7 +68,7 @@ def test_port_imports_no_jax_and_no_repro():
     n, names = int(lines[-1]), set(lines[-2].split())
     # every module of the package, obs and obs_smoke included
     assert n >= 35, res.stdout
-    assert names >= {f"repro_torch.{m}" for m in RUNTIME}, res.stdout
+    assert names >= {f"repro_torch.{m}" for m in RUNTIME + LM}, res.stdout
 
 
 def test_finder_refuses_jax():
