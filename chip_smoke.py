@@ -7,6 +7,7 @@
     python3 chip_smoke.py --campaign-only         # the build and phase 7
     python3 chip_smoke.py --distributed-only      # the build and phase 8
     python3 chip_smoke.py --serve-only            # the build and phase 9
+    python3 chip_smoke.py --train-only            # the build and phase 10
 
 With --k7-only, K7 through the default call of the repro_torch found in
 DIR (an earlier checkout's, to time two kernels in one run), by the three
@@ -15,8 +16,8 @@ around the plan's switch to global (the source of tridiag.MIN_BLOCKS);
 with --campaign-only, the build and phase 7 (phase 4's bare step is not
 run, so the runner's overhead over it is not printed); with
 --distributed-only, the build and phase 8; with --serve-only, the build
-and phase 9.  Each prints its lines, a JSON line and the card's name and
-power limit.
+and phase 9; with --train-only, the build and phase 10.  Each prints its
+lines, a JSON line and the card's name and power limit.
 Phases of the run with no arguments:
 
 (each prints its own lines; any failure raises and exits non-zero):
@@ -204,12 +205,33 @@ Phases of the run with no arguments:
                 float32, 5e-2 in bfloat16); then 3 timed prefills.  Prints
                 prefill ms and tokens/s, decode ms a token and tokens/s at
                 batch 4 (min and max over the 32 steps), peak memory, the
-                phase's seconds and the card's name and power limit.
+                phase's seconds and the card's name and power limit;
+ 10. train    — the LM training path (`models.model.value_and_grad`, K9
+                and K8 in their `autograd.Function`s, `optim.adamw`,
+                `launch.train`, `TrainRunner`): (a) K9's row statistics m
+                and l against the plain version's at phase 6's attention
+                shapes (STATS_TOL; the output with them bitwise the output
+                without) and K9's time with and without them at olmo-1b's;
+                each Function's gradients (kernel forward, plain backward)
+                against autograd through the plain version at KGRAD_CASES
+                (olmo-1b's heads at T 2048; gemma2-9b's local layer, window
+                4096 and soft-cap 50, at T 6144; rwkv6-3b's heads at T
+                512), f32 and bf16, within KGRAD_TOL of max |g|; the plain
+                backwards' ms a layer at (c)'s shapes; (b) olmo-1b and
+                rwkv6-3b at 2 layers, full width, f32, B 2 x T 512: every
+                gradient leaf on cuda within 1e-4 of its max |g| on plain,
+                the loss within 1e-5; (c) both at full depth, bf16
+                parameters, f32 moments, remat on, B 4 (rwkv6-3b 2) x T
+                1024, 10 in-place AdamW steps through TrainRunner on one
+                repeated batch: every step's launches (K9 32, K8 64) as
+                predicted, the loss falling, ms a step and tok/s over steps
+                3-5, peak memory; (d) `python -m repro_torch.launch.train
+                --arch olmo-1b --reduced --steps 20` on the card, exit 0.
 
 The line before the last is the card's `nvidia-smi` name and power limit;
 the line before that is the JSON kernel table (K8's and K9's `launches`
-are phase 9's float32 prefills'); the last line is
-{"ok": true, "device": {...}}.
+are one training step's of phase 10, their prefills' under
+`launches_serve`); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1834,17 +1856,22 @@ def phase_model(ptxas: dict) -> dict:
     return dict(results=results, launches=path)
 
 
-def model_rows(model: dict, serve: dict) -> list:
+def model_rows(model: dict, serve: dict, train: dict) -> list:
     """The K8 and K9 rows of the kernel table: the float32 and bfloat16
     numbers of MODEL_TABLE_CASE, with every case's numbers under `cases`.
-    `launches` is the main path's: phase 9's float32 prefill of the model
-    that runs the kernel (`launches_serve`: every prefill of phase 9;
-    `launches_kernel_phase`: phase 6's calls)."""
+    `launches` is the main path's: one step of phase 10's training of the
+    model that runs the kernel (`launches_serve`: every prefill of phase 9;
+    `launches_kernel_phase`: phase 6's calls); K9's row adds its time with
+    the row statistics (phase 10 (a))."""
     rows = []
     for name, cname in MODEL_TABLE_CASE.items():
         on_path = {key: n for key, row in serve.items()
                    for k, n in row["launches"].items() if k == f"{name}/cuda"}
-        main_key = next(k for k in on_path if k.endswith("/f32"))
+        on_train = {f"train/{arch}/bf16 step": n
+                    for arch, row in train["train"].items()
+                    for k, n in row["launches_per_step"].items()
+                    if k == f"{name}/cuda"}
+        main_key = next(iter(on_train))
         r32 = model["results"][(cname, "f32")]
         r16 = model["results"][(cname, "bf16")]
         cases = {c: {dt: {k: model["results"][(c, dt)][k] for k in
@@ -1856,7 +1883,7 @@ def model_rows(model: dict, serve: dict) -> list:
                  if (case["op"] == "wkv6") == (name == "wkv6")}
         rows.append(dict(
             name=name, route="cuda", source=MODEL_SOURCE[name],
-            replaces=REPLACES[name], launches=on_path[main_key],
+            replaces=REPLACES[name], launches=on_train[main_key],
             launches_path=main_key, launches_serve=on_path,
             launches_kernel_phase=model["launches"][(name, "cuda")],
             max_abs_err=r32["max_abs_err"], ms=r32["ms"],
@@ -1866,6 +1893,12 @@ def model_rows(model: dict, serve: dict) -> list:
             ms_bf16=r16["ms"], bound_ms_bf16=r16["bound_ms"],
             plain_ms_bf16=r16["plain_ms"], library_ms_bf16=r16["library_ms"],
             max_abs_err_bf16=r16["max_abs_err"], cases=cases))
+        if name == "flash_attention":
+            stats = train["kernels"]["stats"]
+            rows[-1].update({
+                f"{key}{'' if dt == 'f32' else '_bf16'}": stats[f"{cname}/{dt}"][key]
+                for dt in ("f32", "bf16")
+                for key in ("ms_stats", "bound_ms_stats")})
     return rows
 
 
@@ -2373,7 +2406,7 @@ SERVE_FLOOR_MARGIN = 2.0
 SERVE_KERNEL = {"attn": ("attention", "flash_attention"), "rwkv": ("wkv6", "wkv6")}
 
 
-def logit_share(out, ref) -> float:
+def max_share(out, ref) -> float:
     """max |out - ref| over max |ref|."""
     ref = ref.float()
     return float((out.float() - ref).abs().max() / ref.abs().max())
@@ -2508,13 +2541,13 @@ def phase_serve(configs: dict, device="cuda") -> dict:
                 if dict(ops.LAUNCHES) != {(kernel, "plain"): n_kernel}:
                     raise AssertionError(f"{name} {dt} plain prefill: "
                                          f"launches {dict(ops.LAUNCHES)}")
-                vs_plain = logit_share(last, ref)
+                vs_plain = max_share(last, ref)
                 del ref
                 gen = torch.Generator(device=dev).manual_seed(SEED + 2)
                 floors = []
                 for _ in range(SERVE_FLOOR_DRAWS):
                     with tapped_model_ops(noise=SERVE_NOISE, gen=gen):
-                        floors.append(logit_share(model.prefill(params, batch),
+                        floors.append(max_share(model.prefill(params, batch),
                                                   last))
             metrics.reset()
             ops.reset_launches()
@@ -2526,7 +2559,7 @@ def phase_serve(configs: dict, device="cuda") -> dict:
                                      f"{dict(ops.LAUNCHES)} (decode is plain "
                                      f"torch)")
             check_dispatches({})
-            vs_prefill = logit_share(out["logits"], last)
+            vs_prefill = max_share(out["logits"], last)
             finite = bool(torch.isfinite(last).all()) and bool(
                 torch.isfinite(out["last_logits"]).all())
             if not finite or tuple(last.shape) != (SERVE_B, arch.vocab):
@@ -2602,6 +2635,372 @@ def serve_configs() -> dict:
     return {name: get_arch(name) for name in SERVE_ARCHS}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the LM training path
+# ---------------------------------------------------------------------------
+TRAIN_ARCHS = ("olmo-1b", "rwkv6-3b")    # configs/archs.py
+# (c): full depth and width, bfloat16 parameters, float32 moments, remat on
+TRAIN_BT = {"olmo-1b": (4, 1024), "rwkv6-3b": (2, 1024)}
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_TIMED = 10, 2, 3
+# (b): full width, GRAD_LAYERS layers, float32, GRAD_B x GRAD_T tokens;
+# every gradient leaf on cuda within GRAD_TOL of that leaf's max |g| on
+# plain (the kernels' summation orders), the loss within LOSS_TOL relative
+GRAD_LAYERS, GRAD_B, GRAD_T = 2, 2, 512
+GRAD_TOL, LOSS_TOL = 1e-4, 1e-5
+# (a): the Functions' gradients with the kernel forward against autograd
+# through the plain version, of each input's max |g|: float32 the kernels'
+# summation orders; bfloat16 the plain version's roundings inside its graph
+# (q * scale and p to bfloat16), which autograd differentiates through
+KGRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# K9's row statistics against the plain version's, relative: float32 the
+# summation orders; bfloat16 rounds q * scale and the scores' products
+# differ from the plain version's float32 matmul of the same bf16 values
+STATS_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+KGRAD_CASES = {
+    # olmo-1b's heads (d 128, causal), T 2048
+    "olmo-1b": dict(op="attention", B=1, H=16, T=2048, d=128, causal=True),
+    # gemma2-9b's local layer: d 256, its window of 4096 (binding past
+    # row 4096) and soft-cap 50
+    "gemma2-9b-local": dict(op="attention", B=1, H=4, T=6144, d=256,
+                            causal=True, window=4096, softcap=50.0),
+    # rwkv6-3b's heads (K 64, 40 a token row), T 512
+    "rwkv6-3b": dict(op="wkv6", B=1, H=40, T=512, d=64),
+}
+
+
+class RepeatedBatch:
+    """A TokenDataset that gives its first batch at every step."""
+
+    def __init__(self, ds):
+        self.batch = ds.batch_at(0)
+
+    def batch_at(self, step: int) -> dict:
+        return self.batch
+
+
+def phase_train_kernels() -> dict:
+    """(a) K9's m and l against the plain version's at phase 6's attention
+    shapes (the output with them bitwise the output without), and K9's time
+    with and without them at olmo-1b's; each Function's gradients (kernel
+    forward, plain backward) against autograd through the plain version at
+    KGRAD_CASES; the plain backwards' times at phase (c)'s layer shapes."""
+    from repro_torch.kernels import flash_attention, ops, wkv6
+    from repro_torch.models import attention, rwkv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    res = {"stats": {}, "grads": {}, "backward_ms": {}}
+    for cname, case in MODEL_CASES.items():
+        if case["op"] != "attention":
+            continue
+        opts = dict(causal=case["causal"], window=case.get("window"),
+                    softcap=case.get("softcap"))
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            q, k, v = (torch.as_tensor(a).to(dev, dtype)
+                       for a in model_inputs(case, SEED))
+            out, m, l = flash_attention.flash_attention(q, k, v, stats=True, **opts)
+            bitwise = torch.equal(out, flash_attention.flash_attention(q, k, v, **opts))
+            _, pm, pl = flash_attention.flash_attention_plain(q, k, v, stats=True,
+                                                              **opts)
+            empty = pm == -1e30
+            m_err = float((m - pm)[~empty].abs().max() / pm[~empty].abs().max())
+            l_err = float(((l - pl) / pl).abs().max())
+            row = dict(m_rel_err=m_err, l_rel_err=l_err, bitwise=bitwise,
+                       empty_rows=int(empty.sum()),
+                       empty_same=bool(torch.equal(m == -1e30, empty)))
+            if not (bitwise and row["empty_same"] and m_err <= STATS_TOL[dtype]
+                    and l_err <= STATS_TOL[dtype]):
+                raise AssertionError(f"K9 stats {cname} {dt}: {row} (limit "
+                                     f"{STATS_TOL[dtype]})")
+            if cname == MODEL_TABLE_CASE["flash_attention"]:
+                plain_ms = time_ms(lambda: flash_attention.flash_attention(
+                    q, k, v, **opts), reps=5)
+                stats_ms = time_ms(lambda: flash_attention.flash_attention(
+                    q, k, v, stats=True, **opts), reps=5)
+                BH, T = q.shape[0], q.shape[1]
+                flops = model_flops(case)
+                bound, by = bound_of(nbytes(q, k, v, out) + 8 * BH * T, flops,
+                                     dtype)
+                row.update(ms=plain_ms, ms_stats=stats_ms, bound_ms_stats=bound,
+                           bound_by_stats=by)
+            res["stats"][f"{cname}/{dt}"] = row
+            log(f"K9 row statistics {cname} {dt} {tuple(q.shape)}: m within "
+                f"{m_err:.3e}, l within {l_err:.3e} of the plain version's "
+                f"(limit {STATS_TOL[dtype]:.0e}), {row['empty_rows']} rows with "
+                f"no valid key at m = -1e30; output with stats bitwise the "
+                f"output without: {bitwise}"
+                + (f"; K9 ms {row['ms']:.4f} without, {row['ms_stats']:.4f} "
+                   f"with m and l (bound {row['bound_ms_stats']:.4f}, "
+                   f"{row['bound_by_stats']})" if "ms" in row else ""))
+            del q, k, v, out, m, l, pm, pl
+    for cname, case in KGRAD_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            arrs = [torch.as_tensor(a).to(dev, dtype)
+                    for a in model_inputs(case, SEED + 1)]
+            if case["op"] == "wkv6":
+                H = case["H"]
+                arrs[4] = (0.5 * torch.randn(H, case["d"], generator=torch.Generator(
+                    device=dev).manual_seed(SEED), device=dev)).to(dtype)
+                fn = lambda *a: rwkv.WKV6.apply(*a, "cuda")
+                plain = wkv6.wkv6_plain
+                kernel = "wkv6"
+            else:
+                opts = dict(causal=case["causal"], window=case.get("window"),
+                            softcap=case.get("softcap"))
+                fn = lambda q, k, v: attention.FlashAttention.apply(
+                    q, k, v, opts["causal"], opts["window"], opts["softcap"], "cuda")
+                plain = lambda q, k, v: flash_attention.flash_attention_plain(
+                    q, k, v, **opts)
+                kernel = "flash_attention"
+            g = torch.Generator(device=dev).manual_seed(SEED + 2)
+            dout = torch.randn(arrs[2].shape, generator=g, device=dev).to(dtype)
+            got = [a.clone().requires_grad_() for a in arrs]
+            ops.reset_launches()
+            fn(*got).backward(dout)
+            torch.cuda.synchronize()
+            if dict(ops.LAUNCHES) != {(kernel, "cuda"): 1}:
+                raise AssertionError(f"{cname} {dt}: launches {dict(ops.LAUNCHES)}")
+            want = [a.clone().requires_grad_() for a in arrs]
+            plain(*want).backward(dout)
+            errs = {n: max_share(a.grad, b.grad)
+                    for n, a, b in zip("qkv" if kernel != "wkv6" else "rkvwu",
+                                       got, want)}
+            res["grads"][f"{cname}/{dt}"] = errs
+            log(f"{kernel} Function gradients {cname} {dt} "
+                f"{tuple(arrs[0].shape)}: kernel forward + plain backward "
+                f"against autograd through the plain version, of max |g|: "
+                + ", ".join(f"d{n} {e:.3e}" for n, e in errs.items())
+                + f" (limit {KGRAD_TOL[dtype]:.0e})")
+            if not max(errs.values()) <= KGRAD_TOL[dtype]:
+                raise AssertionError(f"{kernel} Function {cname} {dt}: {errs}")
+            del arrs, got, want, dout
+            torch.cuda.empty_cache()
+    # the plain backwards at (c)'s layer shapes: olmo-1b's attention in
+    # bfloat16 (B 4, T 1024), rwkv6-3b's WKV (float32 heads, B 2, T 1024)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rnd = lambda *s, dtype=torch.bfloat16: (0.3 * torch.randn(
+        *s, generator=gen, device=dev)).to(dtype)
+    B, T = TRAIN_BT["olmo-1b"]
+    q, k, v, do = (rnd(B * 16, T, 128) for _ in range(4))
+    out, m, l = flash_attention.flash_attention(q, k, v, causal=True, stats=True)
+    res["backward_ms"]["olmo-1b attention"] = time_ms(
+        lambda: attention.flash_attention_bwd(q, k, v, out, m, l, do, True),
+        reps=3)
+    res["backward_ms"]["olmo-1b attention forward"] = time_ms(
+        lambda: flash_attention.flash_attention(q, k, v, causal=True, stats=True),
+        reps=3)
+    del q, k, v, do, out, m, l
+    B, T = TRAIN_BT["rwkv6-3b"]
+    f32 = torch.float32
+    r, kk, vv, do = (rnd(B * 40, T, 64, dtype=f32) for _ in range(4))
+    w = torch.exp(-torch.exp(rnd(B * 40, T, 64, dtype=f32) - 1.0))
+    u = rnd(40, 64, dtype=f32)
+    xs = [t.requires_grad_() for t in (r, kk, vv, w, u)]
+    fwd_ms = time_ms(lambda: rwkv.WKV6.apply(*xs, "cuda"), reps=3)
+    both_ms = time_ms(lambda: torch.autograd.grad(
+        rwkv.WKV6.apply(*xs, "cuda"), xs, do), reps=3)
+    res["backward_ms"]["rwkv6-3b wkv"] = both_ms - fwd_ms
+    res["backward_ms"]["rwkv6-3b wkv forward"] = fwd_ms
+    log("plain backwards at phase 10's layer shapes (a layer, ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["backward_ms"].items()))
+    del r, kk, vv, w, u, do, xs
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_grads(configs: dict, device="cuda") -> dict:
+    """(b) Each config at GRAD_LAYERS layers (full width, heads, vocab) in
+    float32: `value_and_grad(Model.loss)` of GRAD_B x GRAD_T seeded tokens
+    on `auto` (the kernels on the card, counted) and on `plain`, every leaf
+    held to GRAD_TOL of its max |g|, the loss to LOSS_TOL."""
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.models.model import Model, value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    bk = dispatch.resolve_model(None, dev).value
+    res = {}
+    for name, full in configs.items():
+        arch = dataclasses.replace(full, n_layers=GRAD_LAYERS)
+        model = Model(arch, dtype=torch.float32, device=dev)
+        plain = Model(arch, dtype=torch.float32, device=dev, backend="plain")
+        params = model.init(SEED)
+        g = torch.Generator(device=dev).manual_seed(SEED + 4)
+        toks = torch.randint(0, arch.vocab, (GRAD_B, GRAD_T + 1), generator=g,
+                             device=dev)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        ops.reset_launches()
+        loss, grads = value_and_grad(model.loss, params, batch)
+        sync(dev)
+        launches = dict(ops.LAUNCHES)
+        ops.reset_launches()
+        ref_loss, ref = value_and_grad(plain.loss, params, batch)
+        errs = {T.keystr(p): max_share(a, b) for (p, a), b in
+                zip(T.flatten_with_path(grads), T.leaves(ref))}
+        worst = max(errs, key=errs.get)
+        loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        res[name] = dict(loss=float(loss), loss_plain=float(ref_loss),
+                         loss_rel_err=loss_err, worst_leaf=worst,
+                         worst=errs[worst], leaves=len(errs), launches={
+                             f"{k[0]}/{k[1]}": n for k, n in launches.items()})
+        log(f"gradients {name} ({GRAD_LAYERS} layers, d {arch.d_model}, vocab "
+            f"{arch.vocab}, f32, B {GRAD_B} x T {GRAD_T}) on {bk} against "
+            f"plain: loss {float(loss):.6f} vs {float(ref_loss):.6f} (rel "
+            f"{loss_err:.3e}, limit {LOSS_TOL:.0e}); {len(errs)} leaves, worst "
+            f"{worst} at {errs[worst]:.3e} of its max |g| (limit "
+            f"{GRAD_TOL:.0e}); launches {res[name]['launches']}")
+        if not (loss_err <= LOSS_TOL and errs[worst] <= GRAD_TOL):
+            raise AssertionError(f"{name} gradients: {res[name]}")
+        del model, plain, params, grads, ref
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return res
+
+
+def train_kernels_per_step(model) -> dict:
+    """The kernel launches one training step should make: each attention
+    (K9) and RWKV (K8) sub-layer once forward and, under remat, once more in
+    its recompute."""
+    per = 2 if model.arch.remat else 1
+    kernels = {"attn": "flash_attention", "rwkv": "wkv6"}
+    out = {}
+    for sub in model.program:
+        if sub.mixer in kernels:
+            key = kernels[sub.mixer]
+            out[key] = out.get(key, 0) + per * model.n_super
+    return out
+
+
+def phase_train(configs: dict, device="cuda") -> dict:
+    """(c) Each config at full depth: bfloat16 parameters, float32 moments,
+    remat as the config has it (on), TRAIN_STEPS AdamW steps of
+    `launch.train`'s train step (in place: one copy of the model state)
+    through `TrainRunner` on one repeated TokenDataset batch.  Every step's
+    launches must be `train_kernels_per_step`'s; the last loss below the
+    first; steps TRAIN_WARMUP .. TRAIN_WARMUP + TRAIN_TIMED - 1 timed (a
+    device synchronise at each end); peak memory over the run.  The runner
+    gets no retries: an in-place step changes the state it would restore."""
+    import tempfile
+    from repro_torch.data.pipeline import TokenDataset
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import Model, count_params
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault_tolerance import RunnerConfig, TrainRunner
+
+    dev = torch.device(device)
+    bk = dispatch.resolve_model(None, dev).value
+    res = {}
+    for name, arch in configs.items():
+        t_phase = time.perf_counter()
+        B, T = TRAIN_BT[name]
+        model = Model(arch, dtype=torch.bfloat16, device=dev)
+        total, _ = count_params(model)
+        want = {(k, bk): n for k, n in train_kernels_per_step(model).items()}
+        params = model.init(SEED)
+        state = (params, adamw.init(params))
+        ds = RepeatedBatch(TokenDataset(vocab=arch.vocab, seq_len=T,
+                                        global_batch=B, seed=SEED, device=dev))
+        step = make_train_step(model, adamw.AdamWConfig(), inplace=True)
+        losses, step_ms, launches = [], [], []
+
+        def step_fn(state, batch):
+            ops.reset_launches()
+            sync(dev)
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            sync(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(dict(ops.LAUNCHES))
+            losses.append(float(loss))
+            return state, {"loss": loss}
+
+        peak = PeakMemory(dev)
+        with tempfile.TemporaryDirectory() as ckpt:
+            runner = TrainRunner(step_fn, ds, RunnerConfig(
+                checkpoint_dir=ckpt, checkpoint_every=TRAIN_STEPS + 1,
+                max_retries=0))
+            runner.run(state, n_steps=TRAIN_STEPS, resume=False)
+        peak_bytes = peak.read()
+        bad = [i for i, n in enumerate(launches) if n != want]
+        timed = step_ms[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED]
+        ms = sum(timed) / len(timed)
+        row = dict(params=total, B=B, T=T, layers=arch.n_layers,
+                   remat=arch.remat, losses=losses,
+                   launches_per_step={f"{k[0]}/{k[1]}": n for k, n in want.items()},
+                   step_ms=step_ms, ms=ms, ms_min=min(timed), ms_max=max(timed),
+                   tok_s=B * T / ms * 1e3, peak_bytes=peak_bytes,
+                   runner_steps=runner.stats["steps"],
+                   seconds=time.perf_counter() - t_phase)
+        res[name] = row
+        log(f"train {name} ({arch.n_layers} layers, d {arch.d_model}, "
+            f"{total / 1e9:.3f} B params, bf16 params, f32 moments, remat "
+            f"{arch.remat}, B {B} x T {T}, "
+            f"{TRAIN_STEPS} AdamW steps through TrainRunner on one repeated "
+            f"batch): losses {[round(x, 4) for x in losses]}; launches a step "
+            f"{row['launches_per_step']} (predicted; steps that differ: {bad}); "
+            f"ms a step {ms:.2f} (steps {TRAIN_WARMUP + 1}-"
+            f"{TRAIN_WARMUP + TRAIN_TIMED}: min {min(timed):.2f}, max "
+            f"{max(timed):.2f}; first {step_ms[0]:.2f}), {row['tok_s']:.1f} "
+            f"tok/s; peak memory {peak_bytes / 2**30:.3f} GiB; "
+            f"{row['seconds']:.1f} s; nvidia-smi: "
+            f"{nvidia_smi() if dev.type == 'cuda' else 'not measured'}")
+        if bad:
+            raise AssertionError(f"{name}: steps {bad} launched "
+                                 f"{[launches[i] for i in bad]}, not {want}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+                and runner.stats["steps"] == TRAIN_STEPS):
+            raise AssertionError(f"{name}: losses {losses}, runner "
+                                 f"{runner.stats}")
+        del model, params, state, ds, runner
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_launcher() -> dict:
+    """(d) `python -m repro_torch.launch.train --arch olmo-1b --reduced
+    --steps 20` on the card (no --device), which must exit 0."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as ckpt:
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "olmo-1b", "--reduced", "--steps", "20", "--ckpt", ckpt],
+            capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+        seconds = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-3:]
+    log(f"launch.train --arch olmo-1b --reduced --steps 20: exit "
+        f"{proc.returncode} in {seconds:.1f} s; {' | '.join(tail)}")
+    if proc.returncode != 0:
+        raise AssertionError(f"launch.train exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return dict(exit=proc.returncode, seconds=seconds, tail=tail)
+
+
+def train_configs() -> dict:
+    from repro_torch.configs import get_arch
+    return {name: get_arch(name) for name in TRAIN_ARCHS}
+
+
+def phase_training() -> dict:
+    """Phase 10: (a) the kernels' training pieces, (b) full-width
+    gradients against plain, (c) full-depth training, (d) the launcher."""
+    t0 = time.perf_counter()
+    res = dict(kernels=phase_train_kernels(),
+               grads=phase_train_grads(train_configs()),
+               train=phase_train(train_configs()),
+               launcher=phase_train_launcher())
+    log(f"train: phase 10 in {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k7-only", action="store_true",
@@ -2614,6 +3013,8 @@ def main(argv=None) -> int:
                     help="only build and run phase 8 (phase_distributed)")
     ap.add_argument("--serve-only", action="store_true",
                     help="only build and run phase 9 (phase_serve)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="only build and run phase 10 (phase_training)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory holding repro_torch (default: ./src)")
     args = ap.parse_args(argv)
@@ -2655,6 +3056,14 @@ def main(argv=None) -> int:
         serve_res = phase_serve(serve_configs())
         log(f"serve: phase 9 in {time.perf_counter() - t0:.1f} s")
         print(json.dumps({"serve": serve_res}))
+        print(nvidia_smi())
+        return 0
+
+    if args.train_only:
+        log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}")
+        cuda_lib.build()
+        train_res = phase_training()
+        print(json.dumps({"train": train_res}))
         print(nvidia_smi())
         return 0
 
@@ -2715,6 +3124,11 @@ def main(argv=None) -> int:
     log(f"serve: phase 9 in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"serve": serve_res}))
 
+    # 10. the LM training path: the kernels' training pieces, full-width
+    # gradients, olmo-1b and rwkv6-3b trained at full depth, the launcher
+    train_res = phase_training()
+    print(json.dumps({"train": train_res}))
+
     table = []
     for name, label in TABLE_CASE.items():
         r32, r64 = kres[(name, label, "f32")], kres[(name, label, "f64")]
@@ -2772,7 +3186,7 @@ def main(argv=None) -> int:
             table[-1]["cases"] = cases
             table[-1]["sass"] = {v: n for v, n in sass.items()
                                  if v.startswith(name)}
-    for row in model_rows(model, serve_res):
+    for row in model_rows(model, serve_res, train_res):
         if row["name"] == "flash_attention":
             row["sass"] = sass
         table.append(row)

@@ -25,6 +25,12 @@ on one given device, on the device of a matching tree of devices, or by
 default on its template leaf's device: a checkpoint written from the card
 restores onto the CPU and back.
 
+bfloat16 leaves: numpy has no bfloat16, so a leaf is written as its raw
+2-byte elements (numpy's ``V2``), the elements the JAX package's
+`np.save` of an ml_dtypes bfloat16 array writes (numpy reads both files
+back as ``|V2``), with dtype ``bfloat16`` in the manifest; restore turns
+such a file back into a bfloat16 tensor, JAX's files included.
+
 Chaos sites (``runtime/chaos.py``): ``checkpoint.write`` fires inside the
 worker before files land; ``checkpoint.saved`` fires after the rename.
 """
@@ -70,17 +76,36 @@ def _step_name(step: int) -> str:
     return f"step_{step:09d}"
 
 
+_BF16 = np.dtype("V2")     # a bfloat16 leaf's elements, as raw bytes
+
+
 def _host_copy(v) -> np.ndarray:
     """A host array that no later write to ``v`` can change."""
     if isinstance(v, torch.Tensor):
-        return v.detach().to("cpu", copy=True).numpy()
+        t = v.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BF16)
+        return t.numpy()
     return np.array(v)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    """The manifest's name of a host array's dtype."""
+    return "bfloat16" if arr.dtype == _BF16 else str(arr.dtype)
 
 
 def _np_dtype(leaf) -> np.dtype:
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            return _BF16
         return torch.empty((), dtype=leaf.dtype).numpy().dtype
     return np.asarray(leaf).dtype
+
+
+def _from_host(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype == _BF16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _device_of(leaf) -> torch.device:
@@ -116,7 +141,7 @@ class Checkpointer:
                 for k, v in host.items():
                     np.save(os.path.join(tmp, _leaf_file(k)), v)
                     manifest[k] = dict(crc32=_crc(v), shape=list(v.shape),
-                                       dtype=str(v.dtype))
+                                       dtype=_dtype_name(v))
                 with open(os.path.join(tmp, "meta.json"), "w") as f:
                     json.dump({"step": step, "format": FORMAT,
                                "keys": sorted(host.keys()),
@@ -200,7 +225,7 @@ class Checkpointer:
             if list(arr.shape) != list(info["shape"]):
                 problems.append(f"{k}: shape {list(arr.shape)} != manifest "
                                 f"{info['shape']}")
-            if str(arr.dtype) != info["dtype"]:
+            if _dtype_name(arr) != info["dtype"]:
                 problems.append(f"{k}: dtype {arr.dtype} != manifest "
                                 f"{info['dtype']}")
             if _crc(arr) != info["crc32"]:
@@ -262,7 +287,7 @@ class Checkpointer:
                     raise CheckpointCorruption(
                         f"{_step_name(step)}: leaf {k!r} shape "
                         f"{list(arr.shape)} != manifest {info['shape']}")
-                if str(arr.dtype) != info["dtype"]:
+                if _dtype_name(arr) != info["dtype"]:
                     raise CheckpointCorruption(
                         f"{_step_name(step)}: leaf {k!r} dtype {arr.dtype} "
                         f"!= manifest {info['dtype']}")
@@ -273,7 +298,7 @@ class Checkpointer:
                 raise CheckpointError(
                     f"{_step_name(step)}: leaf {k!r} dtype {arr.dtype} != "
                     f"template {_np_dtype(tmpl)}")
-            out[k] = torch.from_numpy(arr).to(dev_flat[k])
+            out[k] = _from_host(arr).to(dev_flat[k])
         return out
 
     def _devices(self, flat: dict, devices: Any) -> dict:

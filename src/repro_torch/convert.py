@@ -14,6 +14,13 @@ and an LM's parameter tree (`models.model.Model.init`'s, JAX's
 
     params = lm_params_from_numpy(tree, device="cpu")
     tree = lm_params_to_numpy(params)
+
+and AdamW's state (JAX's `optim.adamw.AdamWState` with numpy leaves, or
+anything with fields m, v and step) as the port's `AdamWState`, whose
+leaves a checkpoint names as JAX's (``.m/blocks/...``, ``.step``):
+
+    opt = adamw_state_from_numpy(jax.tree_util.tree_map(np.asarray, jopt))
+    m, v, step = adamw_state_to_numpy(opt)
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from .core.geometry import Geom2D
 from .core.stepper import Forcing3D, OceanState
 from . import tree as _tree
 from .kernels.dispatch import default_device
+from .optim.adamw import AdamWState
 
 _INDEX_FIELDS = ("ext_tri", "ext_na", "ext_nb")
 
@@ -115,3 +123,20 @@ def lm_params_to_numpy(params: dict) -> dict:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return _tree.map_leaves(leaf, params)
+
+
+def adamw_state_from_numpy(opt, device=None) -> AdamWState:
+    """The port's AdamW state from JAX's (fields m, v, step; numpy leaves):
+    the moments leaf for leaf (float32), step an int32 scalar."""
+    device = default_device(device)
+    return AdamWState(m=lm_params_from_numpy(opt.m, device),
+                      v=lm_params_from_numpy(opt.v, device),
+                      step=torch.as_tensor(np.array(opt.step, np.int32),
+                                           device=device))
+
+
+def adamw_state_to_numpy(opt: AdamWState) -> AdamWState:
+    """The AdamW state with numpy leaves, fields in JAX's order (m, v, step):
+    `repro.optim.adamw.AdamWState(*adamw_state_to_numpy(opt))` is JAX's."""
+    return AdamWState(m=lm_params_to_numpy(opt.m), v=lm_params_to_numpy(opt.v),
+                      step=opt.step.detach().cpu().numpy())

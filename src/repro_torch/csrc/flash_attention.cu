@@ -11,7 +11,10 @@
 // softcap); keys above the causal diagonal (top-left aligned) or with
 // k <= q - window get the -1e30 sentinel; online softmax in float32; p is
 // rounded to the input dtype before P V, which sums in float32; the output
-// is acc / max(l, 1e-30).  A row with no valid key keeps m at the sentinel,
+// is acc / max(l, 1e-30).  Given two non-null float32 (BH, Tq) pointers, it
+// also writes each row's final m and l (the backward's row statistics, as
+// JAX's custom VJP saves them); with null pointers it stores nothing more.
+// A row with no valid key keeps m at the sentinel,
 // so Pallas gives every key p = 1: its output is the mean of v over all Tk
 // keys, which a second pass computes (only threads holding such a row run
 // it).  Key tiles outside the causal / window band of a whole query tile
@@ -221,7 +224,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ out, int64_t Tq, int64_t Tk,
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
+                  float* __restrict__ l_out, int64_t Tq, int64_t Tk,
                   int causal, int64_t window, float scale, float softcap) {
   using P = Bf16Plan<D>;
   constexpr int BQ = P::BQ, BK = P::BK, CW = P::CW, NCH = P::NCH, S = P::STAGES;
@@ -474,6 +478,10 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(ob + qi * D + 8 * j + 2 * quad) =
           __floats2bfloat162_rn(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+    if (m_out != nullptr && quad == 0) {    // the row statistics of a backward
+      m_out[static_cast<int64_t>(bh) * Tq + qi] = m[h];
+      l_out[static_cast<int64_t>(bh) * Tq + qi] = l[h];
+    }
   }
 }
 
@@ -507,6 +515,7 @@ template <int D>
 __global__ void __launch_bounds__(F32Plan<D>::THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ m_out, float* __restrict__ l_out,
                  int64_t Tq, int64_t Tk, int causal, int64_t window,
                  float scale, float softcap) {
   using P = F32Plan<D>;
@@ -706,6 +715,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < VW; ++e) rf[e] = acc[i][g * VW + e] * inv;
       *reinterpret_cast<Vec*>(out + qi * D + cg * VW + 8 * VW * g) = r;
     }
+    if (m_out != nullptr && cg == 0) {      // the row statistics of a backward
+      m_out[bh * Tq + qi] = m[i];
+      l_out[bh * Tq + qi] = l[i];
+    }
   }
 }
 
@@ -771,7 +784,8 @@ int set_smem(K kernel, int64_t smem) {
 
 template <int D>
 int launch_bf16_d(const void* q, const void* k, const void* v, void* out,
-                  int64_t BH, int64_t Tq, int64_t Tk, int causal, int64_t window,
+                  void* m_out, void* l_out, int64_t BH, int64_t Tq, int64_t Tk,
+                  int causal, int64_t window,
                   float scale, float softcap, const Plan& plan, void* stream) {
   using P = Bf16Plan<D>;
   if (plan.block_q != P::BQ || plan.block_k != P::BK || plan.chunk != P::CW ||
@@ -787,13 +801,15 @@ int launch_bf16_d(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(static_cast<unsigned>(plan.grid_x), static_cast<unsigned>(BH));
   flash_bf16_kernel<D><<<grid, P::THREADS, P::SMEM, static_cast<cudaStream_t>(stream)>>>(
       qm, km, vm, static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      Tq, Tk, causal, window, scale, softcap);
+      static_cast<float*>(m_out), static_cast<float*>(l_out), Tq, Tk, causal, window,
+      scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_f32_d(const void* q, const void* k, const void* v, void* out,
-                 int64_t BH, int64_t Tq, int64_t Tk, int causal, int64_t window,
+                 void* m_out, void* l_out, int64_t BH, int64_t Tq, int64_t Tk,
+                 int causal, int64_t window,
                  float scale, float softcap, const Plan& plan, void* stream) {
   using P = F32Plan<D>;
   if (plan.block_q != P::BQ || plan.block_k != P::BK || plan.chunk != 0 ||
@@ -804,19 +820,20 @@ int launch_f32_d(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(static_cast<unsigned>(plan.grid_x), static_cast<unsigned>(BH));
   flash_f32_kernel<D><<<grid, P::THREADS, P::SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Tq, Tk, causal,
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(m_out), static_cast<float*>(l_out), Tq, Tk, causal,
       window, scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 #define FA_SWITCH(LAUNCH)                                                         \
   switch (d) {   /* the head dims of configs/archs.py (80, 128, 256) and the tests' */ \
-    case 16: return LAUNCH<16>(q, k, v, out, BH, Tq, Tk, causal, window, sc, cap, plan, stream);   \
-    case 32: return LAUNCH<32>(q, k, v, out, BH, Tq, Tk, causal, window, sc, cap, plan, stream);   \
-    case 64: return LAUNCH<64>(q, k, v, out, BH, Tq, Tk, causal, window, sc, cap, plan, stream);   \
-    case 80: return LAUNCH<80>(q, k, v, out, BH, Tq, Tk, causal, window, sc, cap, plan, stream);   \
-    case 128: return LAUNCH<128>(q, k, v, out, BH, Tq, Tk, causal, window, sc, cap, plan, stream); \
-    case 256: return LAUNCH<256>(q, k, v, out, BH, Tq, Tk, causal, window, sc, cap, plan, stream); \
+    case 16: return LAUNCH<16>(q, k, v, out, m_out, l_out, BH, Tq, Tk, causal, window, sc, cap, plan, stream);   \
+    case 32: return LAUNCH<32>(q, k, v, out, m_out, l_out, BH, Tq, Tk, causal, window, sc, cap, plan, stream);   \
+    case 64: return LAUNCH<64>(q, k, v, out, m_out, l_out, BH, Tq, Tk, causal, window, sc, cap, plan, stream);   \
+    case 80: return LAUNCH<80>(q, k, v, out, m_out, l_out, BH, Tq, Tk, causal, window, sc, cap, plan, stream);   \
+    case 128: return LAUNCH<128>(q, k, v, out, m_out, l_out, BH, Tq, Tk, causal, window, sc, cap, plan, stream); \
+    case 256: return LAUNCH<256>(q, k, v, out, m_out, l_out, BH, Tq, Tk, causal, window, sc, cap, plan, stream); \
     default: return static_cast<int>(cudaErrorInvalidValue);                      \
   }
 
@@ -824,11 +841,13 @@ int launch_f32_d(const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
+// m_out and l_out: null, or float32 (BH, Tq) for the row statistics
 #define FA_ARGS                                                                  \
-  const void *q, const void *k, const void *v, void *out, int64_t BH, int64_t Tq, \
-      int64_t Tk, int64_t d, int causal, int64_t window, double scale,           \
-      double softcap, int64_t block_q, int64_t block_k, int64_t chunk,           \
-      int64_t stages, int64_t threads, int64_t smem, int64_t grid_x, void *stream
+  const void *q, const void *k, const void *v, void *out, void *m_out,           \
+      void *l_out, int64_t BH, int64_t Tq, int64_t Tk, int64_t d, int causal,    \
+      int64_t window, double scale, double softcap, int64_t block_q,             \
+      int64_t block_k, int64_t chunk, int64_t stages, int64_t threads,           \
+      int64_t smem, int64_t grid_x, void *stream
 
 int flash_attention_bf16(FA_ARGS) {
   const float sc = static_cast<float>(scale), cap = static_cast<float>(softcap);

@@ -15,6 +15,11 @@ outlasts `timeout_s` kills every rank and raises in the parent (the rank's
 traceback in the message), so a test or a smoke run fails and does not
 hang.  The process group's own timeout (`PG_TIMEOUT_S`) ends a collective
 that waits on a peer that never answers.
+
+No rank outlives `run`: a rank still alive when the run ends (at its
+deadline, or one that failed) is killed, and `run` waits for each killed
+rank to be gone (`KILL_WAIT_S` at most, then it raises), so a loaded host
+that is slow to reap a killed process cannot leave one behind.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import traceback
 from typing import Any, Callable, List, Sequence
 
 PG_TIMEOUT_S = 120.0
+KILL_WAIT_S = 120.0     # how long a killed rank may take to be gone
 
 
 def _rank_main(rank: int, n_ranks: int, store_path: str, fn: Callable,
@@ -96,11 +102,14 @@ def run(fn: Callable, n_ranks: int, args: Sequence = (),
             p.join(timeout=max(deadline - time.monotonic(), 5.0))
         return [got[r] for r in range(n_ranks)]
     finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-        for p in procs:
-            if p.pid is not None:
-                p.join(timeout=10.0)
+        killed = [p for p in procs if p.is_alive()]
+        for p in killed:
+            p.kill()
+        for p in killed:
+            p.join(timeout=KILL_WAIT_S)
         results.close()
         shutil.rmtree(tmp, ignore_errors=True)
+        alive = [r for r, p in enumerate(procs) if p.is_alive()]
+        if alive:
+            raise RuntimeError(f"ranks {alive} still alive {KILL_WAIT_S:.0f} s "
+                               f"after being killed")

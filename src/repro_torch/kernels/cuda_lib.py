@@ -62,10 +62,11 @@ _ARGTYPES = {
     "wkv6": [_P] * 6 + [_I] * 14 + [_P],
     # K, rows, cols, threads, shared-memory bytes -> blocks one SM holds
     "wkv6_occupancy": [_I, _I, _I, _I, _I, _P],
-    # ..., then the launch plan: block_q, block_k, chunk, stages, threads,
+    # q, k, v, out, m, l (null or the row statistics), BH, Tq, Tk, d, ...,
+    # then the launch plan: block_q, block_k, chunk, stages, threads,
     # shared-memory bytes, the grid's query tiles
     # (kernels/flash_attention.py: launch_plan, grid)
-    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int,
+    "flash_attention": [_P] * 6 + [_I, _I, _I, _I, ctypes.c_int,
                         _I, ctypes.c_double, ctypes.c_double,
                         _I, _I, _I, _I, _I, _I, _I, _P],
 }

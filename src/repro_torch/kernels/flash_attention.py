@@ -27,6 +27,13 @@ window - 1, causal or not) keeps m at the sentinel, so every key gets p = 1
 and the row is the mean of v over all Tk keys: in the Pallas kernel, the
 plain version, `ref` and the CUDA kernel alike.
 
+With ``stats=True`` both return (out, m, l): the row statistics of the
+backward (`models/attention.py`), float32 (BH, Tq), the final running max
+and normaliser, as JAX's custom VJP saves them (m, l and not lse = m +
+log l: a row with no valid key keeps m = -1e30 and l = Tk, and the
+backward gives its keys p = 1 / l).  The kernel writes them only when
+asked; without them it stores what it always stored.
+
 `flash_attention` launches the kernel and takes only CUDA tensors;
 `flash_attention_plain` is the plain PyTorch version, the Pallas kernel's
 body over 128-key blocks, used on CPU tensors and to check the kernel.
@@ -112,7 +119,7 @@ def _check_options(window, softcap) -> None:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: Optional[int] = None,
-                          softcap: Optional[float] = None) -> torch.Tensor:
+                          softcap: Optional[float] = None, stats: bool = False):
     """The Pallas kernel's body (`repro/kernels/flash_attention.py:24-65`)
     over key blocks of 128, all query rows at once: q is scaled in its own
     dtype, p is cast to v's dtype before the PV product, both products sum
@@ -145,13 +152,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = alpha * l + p.sum(dim=-1, keepdim=True)
         acc = alpha * acc + torch.matmul(p.to(v.dtype).float(), vb.float())
         m = m_new
-    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    out = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    return (out, m[..., 0], l[..., 0]) if stats else out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
-    """K9 on the card: q (BH, Tq, d), k/v (BH, Tk, d) -> (BH, Tq, d)."""
+                    softcap: Optional[float] = None, stats: bool = False):
+    """K9 on the card: q (BH, Tq, d), k/v (BH, Tk, d) -> (BH, Tq, d), and
+    with ``stats`` the row statistics m and l, float32 (BH, Tq)."""
     if q.dim() != 3 or k.dim() != 3:
         raise ValueError(f"flash_attention: expected q (BH, Tq, d) and k/v "
                          f"(BH, Tk, d), got {tuple(q.shape)}, {tuple(k.shape)}")
@@ -171,12 +180,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{ALIGN}-byte aligned")
     _check_options(window, softcap)
     out = torch.empty_like(q)
+    m = l = None
+    if stats:
+        m, l = (torch.empty((BH, Tq), dtype=torch.float32, device=q.device)
+                for _ in range(2))
     cuda_lib.launch("flash_attention", q.dtype, q.device, q.data_ptr(),
-                    k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Tq, Tk, d,
+                    k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    None if m is None else m.data_ptr(),
+                    None if l is None else l.data_ptr(), BH, Tq, Tk, d,
                     int(bool(causal)), 0 if window is None else int(window),
                     1.0 / (d ** 0.5), 0.0 if softcap is None else float(softcap),
                     plan["block_q"], plan["block_k"], plan["chunk"],
                     plan["stages"], plan["threads"], plan["smem_bytes"],
                     grid(plan, BH, Tq)[0])
     LAUNCHES[("flash_attention", "cuda")] += 1
-    return out
+    return (out, m, l) if stats else out

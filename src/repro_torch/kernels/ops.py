@@ -19,7 +19,9 @@ Three families of signatures, as in the JAX package:
     is (nl, 6, C), so the matrix-free kernels take it as a view.
   * model ops: `wkv6` and `attention` (the JAX package's `ops.py:219-240`),
     whose `auto` is `cuda` on a CUDA tensor and `ref` on a CPU tensor
-    (`dispatch.resolve_model`).
+    (`dispatch.resolve_model`); with inputs that require grad they go
+    through the `autograd.Function`s of `models/` (`attention_with_stats`
+    gives the attention's forward its row statistics).
 
 Every call goes through `_dispatch(op, backend)`, which adds one to the
 default metrics registry's ``kernel_dispatch{op=..., backend=...}`` counter
@@ -228,32 +230,40 @@ def cell_to_soa(x, nt, backend: dispatch.BackendLike = None):
 # ---------------------------------------------------------------------------
 # model kernels (the JAX package's `ops.py:219-240`)
 # ---------------------------------------------------------------------------
-def _forward_only(op: str, *ts) -> None:
-    """K8 and K9 have no backward, like their Pallas originals: refuse
-    inputs that autograd would need a gradient of, rather than return an
-    output that silently has none."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise RuntimeError(f"ops.{op}: the CUDA kernel is forward only; "
-                           f"inputs that require grad need backend 'plain' "
-                           f"or 'ref', or run under torch.no_grad()")
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def wkv6(r, k, v, w, u, backend: dispatch.BackendLike = None):
-    """RWKV6 recurrence: r, k, w (BH, T, K); v (BH, T, V); u (K,) or (H, K)."""
+    """RWKV6 recurrence: r, k, w (BH, T, K); v (BH, T, V); u (K,) or (H, K).
+
+    With inputs that require grad, ``plain`` and ``cuda`` go through
+    `models.rwkv.WKV6` (this op forward, the chunked form's gradient
+    backward); ``ref`` is autograd through the reference scan."""
     bk = dispatch.resolve_model(backend, r.device)
+    if bk is not Backend.REF and _needs_grad(r, k, v, w, u):
+        from ..models.rwkv import WKV6
+        return WKV6.apply(r, k, v, w, u, bk.value)
     with _dispatch("wkv6", bk):
         if bk is Backend.REF:
             return _ref.wkv6(r, k, v, w, u)
         if bk is Backend.PLAIN:
             return _wkv6.wkv6_plain(r, k, v, w, u)
-        _forward_only("wkv6", r, k, v, w, u)
         return _wkv6.wkv6(*(t.contiguous() for t in (r, k, v, w, u)))
 
 
 def attention(q, k, v, causal=True, window=None, softcap=None,
               backend: dispatch.BackendLike = None):
-    """Forward attention: q (BH, Tq, d), k/v (BH, Tk, d)."""
+    """Attention: q (BH, Tq, d), k/v (BH, Tk, d).
+
+    With inputs that require grad, ``plain`` and ``cuda`` go through
+    `models.attention.FlashAttention` (`attention_with_stats` forward, the
+    port of JAX's custom VJP backward); ``ref`` is autograd through the
+    reference's chunked softmax."""
     bk = dispatch.resolve_model(backend, q.device)
+    if bk is not Backend.REF and _needs_grad(q, k, v):
+        from ..models.attention import FlashAttention
+        return FlashAttention.apply(q, k, v, causal, window, softcap, bk.value)
     with _dispatch("attention", bk):
         if bk is Backend.REF:
             return _ref.chunked_attention(q, k, v, causal=causal,
@@ -261,7 +271,24 @@ def attention(q, k, v, causal=True, window=None, softcap=None,
         if bk is Backend.PLAIN:
             return flash_attention.flash_attention_plain(
                 q, k, v, causal=causal, window=window, softcap=softcap)
-        _forward_only("attention", q, k, v)
         return flash_attention.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
             window=window, softcap=softcap)
+
+
+def attention_with_stats(q, k, v, causal=True, window=None, softcap=None,
+                         backend: dispatch.BackendLike = None):
+    """`attention` and its row statistics: (out, m, l), m and l float32
+    (BH, Tq), on ``plain`` or ``cuda`` (``ref`` keeps none)."""
+    bk = dispatch.resolve_model(backend, q.device)
+    if bk is Backend.REF:
+        raise ValueError("attention_with_stats: backend 'ref' keeps no row "
+                         "statistics ('plain' or 'cuda')")
+    with _dispatch("attention", bk):
+        if bk is Backend.PLAIN:
+            return flash_attention.flash_attention_plain(
+                q, k, v, causal=causal, window=window, softcap=softcap,
+                stats=True)
+        return flash_attention.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            window=window, softcap=softcap, stats=True)

@@ -11,6 +11,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .layers import Draw
 
@@ -46,24 +47,40 @@ def mamba_params(draw: Draw, d_model, cfg: MambaCfg, dtype=torch.bfloat16):
     }
 
 
-def _ssm_scan(u, dt, B, C, A, D):
-    """u, dt: (Bt, T, di); B, C: (Bt, T, N); A: (di, N); D: (di,).
-
-    h_t = exp(dt*A) h_{t-1} + dt*B_t*u_t ; y_t = (C_t . h_t) + D*u_t
-
-    The per-token recurrence of JAX's default chunked scan: its chunks are
-    `jax.checkpoint` boundaries that bound the backward's memory and leave
-    each step's arithmetic as it is, so the forward is one loop over T
-    (and T needs to be no multiple of a chunk)."""
-    Bt, T, di = u.shape
-    h = u.new_zeros((Bt, di, A.shape[1]), dtype=torch.float32)
+def _scan_chunk(h, u, dt, B, C, A):
+    """Steps of the recurrence from state h over u, dt (Bt, c, di) and B, C
+    (Bt, c, N); returns (h after them, y (Bt, c, di))."""
     ys = []
-    for t in range(T):
+    for t in range(u.shape[1]):
         dtt, ut = dt[:, t], u[:, t]
         dA = torch.exp(dtt[..., None] * A[None])          # (Bt, di, N)
         h = dA * h + (dtt * ut)[..., None] * B[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
-    return torch.stack(ys, dim=1) + D[None, None] * u
+    return h, torch.stack(ys, dim=1)
+
+
+def _ssm_scan(u, dt, B, C, A, D, chunk: int = 32):
+    """u, dt: (Bt, T, di); B, C: (Bt, T, N); A: (di, N); D: (di,).
+
+    h_t = exp(dt*A) h_{t-1} + dt*B_t*u_t ; y_t = (C_t . h_t) + D*u_t
+
+    The per-token recurrence of JAX's default chunked scan, in chunks of
+    `chunk` tokens (a ragged last one cut short: JAX needs T % chunk == 0).
+    Under grad each chunk runs under `torch.utils.checkpoint`, as JAX's is
+    `jax.checkpoint`'ed: the backward keeps one (Bt, di, N) state a chunk
+    and recomputes inside it.  Each step's arithmetic is the same either
+    way."""
+    Bt, T, di = u.shape
+    h = u.new_zeros((Bt, di, A.shape[1]), dtype=torch.float32)
+    ys = []
+    for c0 in range(0, T, chunk):
+        xs = [z[:, c0:c0 + chunk] for z in (u, dt, B, C)]
+        if torch.is_grad_enabled():
+            h, y = checkpoint(_scan_chunk, h, *xs, A, use_reentrant=False)
+        else:
+            h, y = _scan_chunk(h, *xs, A)
+        ys.append(y)
+    return torch.cat(ys, dim=1) + D[None, None] * u
 
 
 def _dt_b_c(p, u):

@@ -7,16 +7,23 @@ n_super = L / len(program) times.  Parameters are stacked (n_super, ...)
 per sub-layer, the tree JAX's `Model.init` makes; the forward loops over
 the super-blocks with the program unrolled inside, as JAX's `lax.scan`.
 
-Entry points: `forward` / `loss` (a value only), `prefill` (last-token
-logits) and `decode_step` with `init_cache`.  The forward's attention goes
-through `ops.attention` (K9) and its WKV through `ops.wkv6` (K8) on
-``backend``; decode is plain torch on every backend.
+Entry points: `forward` / `loss`, `prefill` (last-token logits) and
+`decode_step` with `init_cache`; `value_and_grad(model.loss, params,
+batch)` is `jax.value_and_grad` of the loss, a gradient for every leaf.
+The forward's attention goes through `ops.attention` (K9) and its WKV
+through `ops.wkv6` (K8) on ``backend``, with their `autograd.Function`s
+when the parameters require grad; decode is plain torch on every backend.
 
-Left out, because one card in inference has no use for them: JAX's
-sharding attributes (`logits_sharding`, `act_sharding`, `head_sharding`,
-`moe_hidden_sharding`, `pad_heads_to`, ...), which pin GSPMD layouts over a
-mesh, and `remat` / `remat_groups`, which trade recomputation for
-activation memory in the backward.
+Rematerialisation, as JAX's: with `arch.remat` each sub-layer of a forward
+under grad runs under `torch.utils.checkpoint` (non-reentrant), so the
+backward keeps only the residual stream between sub-layers and runs each
+sub-layer's forward again (K9 and K8 included); `remat_groups` = g > 1
+(dividing the super-blocks) also checkpoints each group of n_super / g
+super-blocks as a whole.  The numbers do not change.
+
+Left out, because one card has no use for them: JAX's sharding attributes
+(`logits_sharding`, `act_sharding`, `head_sharding`, `moe_hidden_sharding`,
+`pad_heads_to`, ...), which pin GSPMD layouts over a mesh.
 """
 from __future__ import annotations
 
@@ -25,7 +32,9 @@ import math
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from .. import tree
 from ..configs.base import ArchConfig, ShapeSpec
 from ..kernels import dispatch
 from . import layers, mamba, moe, rwkv
@@ -107,6 +116,9 @@ class Model:
         if backend not in (None, "auto"):
             dispatch.Backend(backend)          # raises on an unknown name
         self.backend = backend
+        # two-level remat: each group of n_super / remat_groups super-blocks
+        # checkpointed as a whole (JAX's `remat_groups`; None: per sub-layer)
+        self.remat_groups = None
         self.program = block_program(arch)
         if arch.n_layers % len(self.program):
             raise ValueError(f"{arch.name}: {arch.n_layers} layers are not a "
@@ -214,12 +226,32 @@ class Model:
         """Full-sequence forward -> (logits (B, T, V), aux_loss)."""
         x = self._embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for s in range(self.n_super):
-            for i, sub in enumerate(self.program):
-                x, a_ = self._apply_sub(_index(params["blocks"][f"sub{i}"], s),
-                                        x, sub, positions)
+        remat = self.arch.remat and torch.is_grad_enabled()
+
+        def blocks(first, last, x):
+            """Super-blocks first .. last - 1 -> (x, their aux losses)."""
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for s in range(first, last):
+                for i, sub in enumerate(self.program):
+                    p = _index(params["blocks"][f"sub{i}"], s)
+                    if remat:
+                        x, a_ = checkpoint(self._apply_sub, p, x, sub,
+                                           positions, use_reentrant=False)
+                    else:
+                        x, a_ = self._apply_sub(p, x, sub, positions)
+                    aux = aux + a_
+            return x, aux
+
+        g = self.remat_groups
+        if remat and g and g > 1 and self.n_super % g == 0:
+            gs = self.n_super // g
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for j in range(g):
+                x, a_ = checkpoint(blocks, j * gs, (j + 1) * gs, x,
+                                   use_reentrant=False)
                 aux = aux + a_
+        else:
+            x, aux = blocks(0, self.n_super, x)
         return self._logits(params, x), aux
 
     def loss(self, params, batch):
@@ -328,12 +360,25 @@ class Model:
                 "pos": spec((), torch.int32)}
 
 
+def value_and_grad(fn, params, *args):
+    """(fn(params, *args), its gradient): `jax.value_and_grad` for a tree of
+    floating parameter tensors.  The gradient is a tree of ``params``'
+    structure, each leaf in its parameter's dtype (zeros where the value
+    does not depend on the leaf, as JAX gives).  ``params`` itself is left
+    as it is (the function sees detached leaves that require grad)."""
+    xs = [t.detach().requires_grad_() for t in tree.leaves(params)]
+    with torch.enable_grad():
+        value = fn(tree.unflatten(params, xs), *args)
+        grads = torch.autograd.grad(value, xs, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(xs, grads)]
+    return value.detach(), tree.unflatten(params, grads)
+
+
 def count_params(model: Model) -> Tuple[int, int]:
     """(total, active) parameter counts from the abstract tree.
 
     Active scales routed-expert weights by top_k / n_experts (MoE cells
     report MODEL_FLOPS = 6 * N_active * D)."""
-    from .. import tree
     a = model.arch
     total = 0
     active = 0.0

@@ -7,6 +7,14 @@ prefill contract (JAX discards S_T there).  Decode carries (token shift,
 WKV state) and steps `_wkv_with_state` in plain torch on every backend, as
 JAX does outside any Pallas kernel.
 
+Training: with inputs that require grad, `ops.wkv6` on ``plain`` and
+``cuda`` goes through `WKV6`, whose forward is the op (K8 on the card)
+and whose backward recomputes `wkv_chunked`, the port of JAX's chunked
+form (the function JAX's forward runs and differentiates), from the
+saved r, k, v, w and u, and returns its gradient: the gradient JAX takes.
+Each chunk's body runs under `torch.utils.checkpoint`, as JAX's is
+`jax.checkpoint`'ed, so the backward keeps one state a chunk.
+
 The dtype chain is JAX's: the projections in the activations' dtype, the
 decay w = exp(-exp(decay + dd)) in float32, w rounded to the activations'
 dtype on prefill, the recurrence in float32, `out * (1 + ln_x)` in float32
@@ -18,6 +26,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from .layers import Draw
@@ -118,6 +127,80 @@ def _wkv_with_state(r, k, v, w, u, S0):
         out.append((r[:, t, :, None] * (S + uh[:, :, None] * kv)).sum(dim=1))
         S = w[:, t, :, None] * S + kv
     return torch.stack(out, dim=1), S
+
+
+def _wkv_chunk(S, rc, kc, vc, wc, uh):
+    """One chunk of `wkv_chunked`, float32: S (BH, K, V); rc, kc, wc (BH, C,
+    K); vc (BH, C, V); uh (BH, K).  Returns (S after the chunk, out)."""
+    BH, C, K = rc.shape
+    L = torch.cumsum(torch.log(torch.clamp(wc, min=1e-30)), dim=1)
+    Lprev = torch.cat([L.new_zeros((BH, 1, K)), L[:, :-1]], dim=1)
+    # pairwise decay ratios: exp(L_{j-1} - L_i) for i < j (always <= 1)
+    D = Lprev[:, :, None, :] - L[:, None, :, :]            # (BH, Cj, Ci, K)
+    mask = torch.tril(torch.ones((C, C), dtype=torch.float32,
+                                 device=rc.device), -1)
+    P = torch.einsum("bjk,bik,bjik->bji", rc, kc,
+                     torch.exp(torch.minimum(D, D.new_zeros(())))) * mask[None]
+    intra = torch.einsum("bji,bik->bjk", P, vc)
+    diag = torch.sum(rc * uh[:, None] * kc, dim=-1, keepdim=True) * vc
+    r_t = rc * torch.exp(Lprev)                            # <= |r| (safe)
+    inter = torch.einsum("bik,bkv->biv", r_t, S)
+    out = inter + intra + diag
+    aC = L[:, -1]                                          # (BH, K) log decay
+    kS = kc * torch.exp(aC[:, None] - L)                   # exp(L_C - L_i) <= 1
+    S_new = torch.exp(aC)[:, :, None] * S + torch.einsum("bik,biv->bkv", kS, vc)
+    return S_new, out
+
+
+def wkv_chunked(r, k, v, w, u, S0=None, chunk: int = 64):
+    """Chunkwise-parallel WKV6 (JAX's `wkv_chunked`), float32.
+
+    Within a chunk of C = min(chunk, T) steps, with L_t = cumsum(log w):
+    intra-chunk ((r k^T) o exp(L_{j-1} - L_i), strictly lower) V, from the
+    exact pairwise log-decay differences (every exp <= 1, safe for any
+    decay), plus the bonus diag(r_j . (u o k_j)) v_j; inter-chunk r_j
+    exp(L_{j-1}) S; the state S_C = diag(exp(L_C)) S + (k o exp(L_C -
+    L_i))^T V.  A ragged last chunk is cut short (JAX needs T % C == 0).
+    Under grad each chunk's body is checkpointed.
+
+    r, k, w (BH, T, K); v (BH, T, V); u (BH, K) or (K,); S0 (BH, K, V) or
+    None (zeros).  Returns (out (BH, T, V), S_T), float32."""
+    BH, T, K = r.shape
+    C = min(chunk, T)
+    uh = u.float() if u.dim() == 2 else u.float()[None].expand(BH, K)
+    S = (r.new_zeros((BH, K, v.shape[-1]), dtype=torch.float32)
+         if S0 is None else S0.float())
+    outs = []
+    for c0 in range(0, T, C):
+        xs = [z[:, c0:c0 + C].float() for z in (r, k, v, w)]
+        if torch.is_grad_enabled():
+            S, out = checkpoint(_wkv_chunk, S, *xs, uh, use_reentrant=False)
+        else:
+            S, out = _wkv_chunk(S, *xs, uh)
+        outs.append(out)
+    return torch.cat(outs, dim=1), S
+
+
+class WKV6(torch.autograd.Function):
+    """The WKV recurrence with a gradient: forward `ops.wkv6` on ``backend``
+    (``plain`` or ``cuda``: K8), backward the gradient of `wkv_chunked`
+    recomputed from the saved inputs.  u (K,) or (H, K), head bh taking row
+    bh % H."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, backend):
+        ctx.save_for_backward(r, k, v, w, u)
+        return ops.wkv6(r, k, v, w, u, backend=backend)
+
+    @staticmethod
+    def backward(ctx, dout):
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            r, k, v, w, u = xs
+            uh = u.repeat(r.shape[0] // u.shape[0], 1) if u.dim() == 2 else u
+            out, _ = wkv_chunked(r, k, v, w, uh)
+            grads = torch.autograd.grad(out, xs, dout.to(out.dtype))
+        return (*grads, None)
 
 
 def channel_mix(p, x, shift_state=None):

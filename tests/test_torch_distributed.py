@@ -267,30 +267,55 @@ def test_build_cell_matches_jax(reef):
 # ---------------------------------------------------------------------------
 # the spawn helper: results in rank order; a failure or a hang never waits
 # ---------------------------------------------------------------------------
-def _no_rank_left():
-    import multiprocessing
-    return not multiprocessing.active_children()
+@pytest.fixture
+def started(monkeypatch):
+    """The processes that `spawn.run` starts in this test, recorded as its
+    spawn context creates them: the ranks of this run and no other child of
+    the test process (which, under pytest-xdist, may hold other tests')."""
+    import torch.multiprocessing as mp
+    procs, real = [], mp.get_context
+
+    class Recording:
+        def __init__(self, ctx):
+            self.ctx = ctx
+
+        def __getattr__(self, name):
+            return getattr(self.ctx, name)
+
+        def Process(self, *args, **kwargs):
+            procs.append(self.ctx.Process(*args, **kwargs))
+            return procs[-1]
+
+    monkeypatch.setattr(mp, "get_context",
+                        lambda method=None: Recording(real(method)))
+    return procs
 
 
-def test_spawn_returns_results_in_rank_order():
+def _no_rank_left(procs, n_ranks):
+    """Every rank the run started is gone (exited and reaped)."""
+    return len(procs) == n_ranks and all(p.exitcode is not None
+                                         for p in procs)
+
+
+def test_spawn_returns_results_in_rank_order(started):
     import torch_dist_ranks as R
     from repro_torch.distributed import spawn
     assert spawn.run(R.raise_on, 3, args=(-1,), timeout_s=120) == [0, 1, 2]
-    assert _no_rank_left()
+    assert _no_rank_left(started, 3)
 
 
 @pytest.mark.parametrize("how", ["raises", "exits"])
-def test_spawn_turns_a_failed_rank_into_an_error(how):
+def test_spawn_turns_a_failed_rank_into_an_error(how, started):
     import torch_dist_ranks as R
     from repro_torch.distributed import spawn
     fn, args, msg = ((R.raise_on, (1,), "fails on purpose") if how == "raises"
                      else (R.exit_hard, (), "exited with code 3"))
     with pytest.raises(RuntimeError, match=msg):
         spawn.run(fn, 2, args=args, timeout_s=120)
-    assert _no_rank_left()
+    assert _no_rank_left(started, 2)
 
 
-def test_spawn_ends_a_deadlocked_run_at_its_deadline():
+def test_spawn_ends_a_deadlocked_run_at_its_deadline(started):
     import time
     import torch_dist_ranks as R
     from repro_torch.distributed import spawn
@@ -298,4 +323,4 @@ def test_spawn_ends_a_deadlocked_run_at_its_deadline():
     with pytest.raises(TimeoutError):
         spawn.run(R.wait_for_nothing, 2, timeout_s=8)
     assert time.monotonic() - t0 < 60
-    assert _no_rank_left()
+    assert _no_rank_left(started, 2)

@@ -791,13 +791,97 @@ def test_lm_forward_cuda_matches_plain(cuda, name, dtype):
 
 
 def test_model_kernels_refuse_grad_on_cuda(cuda):
-    """K8 and K9 are forward only: inputs that require grad raise on the
-    cuda backend instead of returning an output without a gradient."""
+    """K8 and K9 no longer refuse inputs that require grad: on the cuda
+    backend they go through their autograd Functions (the kernel forward,
+    a plain torch backward) and give every input a gradient."""
     q = torch.randn(2, 64, 16, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        ops.attention(q, q, q)
+    ops.reset_launches()
+    ops.attention(q, q, q).sum().backward()
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
     r = torch.rand(2, 8, 64, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        ops.wkv6(r, r, r, r, torch.zeros(64, device=cuda))
+    ops.wkv6(r, r, r, r, torch.zeros(64, device=cuda)).sum().backward()
+    assert r.grad is not None and bool(torch.isfinite(r.grad).all())
+    assert dict(ops.LAUNCHES) == {("flash_attention", "cuda"): 1,
+                                  ("wkv6", "cuda"): 1}
     with torch.no_grad():
         assert ops.attention(q, q, q).shape == q.shape
+
+
+# --- the training path: K9's row statistics, the Functions' gradients -------
+# gradients with the kernel forward against autograd through the plain
+# version, of each one's max |g|: float32 the kernels' summation orders;
+# bfloat16 the plain version's roundings (q * scale, p) inside its graph
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+ATTN_GRAD_CASES = [(True, None, None, 256, 256), (True, 64, 30.0, 200, 200),
+                   (False, None, None, 96, 300), (False, 32, None, 200, 100)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_attention_row_statistics(cuda, dtype, d):
+    """m and l of K9 against the plain version's (float32, relative 1e-5 in
+    float32; in bfloat16 the kernel rounds q * scale as the plain version
+    does, and l sums float32 p, held to 1e-2), the rows with no valid key
+    at m = -1e30, l = Tk; the output with statistics bitwise the output
+    without."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(7 + d)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for causal, window, softcap, tq, tk in ATTN_GRAD_CASES:
+        q, k, v = _on(cuda, dtype, *(0.5 * rng.normal(size=(3, t, d))
+                                     for t in (tq, tk, tk)))
+        opts = dict(causal=causal, window=window, softcap=softcap)
+        out, m, l = flash_attention.flash_attention(q, k, v, stats=True, **opts)
+        assert torch.equal(out, flash_attention.flash_attention(q, k, v, **opts))
+        _, pm, pl = flash_attention.flash_attention_plain(q, k, v, stats=True,
+                                                          **opts)
+        assert m.shape == l.shape == (3, tq) and m.dtype == torch.float32
+        empty = pm == -1e30
+        assert torch.equal(m == -1e30, empty)
+        assert bool((l[empty] == tk).all())
+        assert float((m - pm)[~empty].abs().max()) <= tol * float(pm[~empty].abs().max())
+        assert float(((l - pl) / pl).abs().max()) <= tol
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_function_grads_against_plain_autograd(cuda, dtype):
+    from repro_torch.models.attention import FlashAttention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(11)
+    for causal, window, softcap, tq, tk in ATTN_GRAD_CASES:
+        q, k, v, do = _on(cuda, dtype, *(0.5 * rng.normal(size=(2, t, 128))
+                                         for t in (tq, tk, tk, tq)))
+        got = [t.clone().requires_grad_() for t in (q, k, v)]
+        ops.reset_launches()
+        FlashAttention.apply(*got, causal, window, softcap, "cuda").backward(do)
+        assert dict(ops.LAUNCHES) == {("flash_attention", "cuda"): 1}
+        want = [t.clone().requires_grad_() for t in (q, k, v)]
+        flash_attention.flash_attention_plain(
+            *want, causal=causal, window=window, softcap=softcap).backward(do)
+        for a, b in zip(got, want):
+            scale = float(b.grad.float().abs().max())
+            err = float((a.grad.float() - b.grad.float()).abs().max())
+            assert err <= GRAD_TOL[dtype] * scale, (causal, window, err, scale)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_function_grads_against_plain_autograd(cuda, dtype):
+    """WKV6 on the card (K8 forward, the chunked form's gradient) against
+    autograd through the plain recurrence, rwkv6-3b's head (K 64), u per
+    head."""
+    from repro_torch.models.rwkv import WKV6
+    args = _wkv6_args(cuda, dtype, 4, 200, 64, 64, 12, heads=2)
+    do = torch.randn(4, 200, 64, device=cuda, dtype=dtype)
+    got = [t.clone().requires_grad_() for t in args]
+    ops.reset_launches()
+    WKV6.apply(*got, "cuda").backward(do)
+    assert dict(ops.LAUNCHES) == {("wkv6", "cuda"): 1}
+    want = [t.clone().requires_grad_() for t in args]
+    wkv6.wkv6_plain(*want).backward(do)
+    for name, a, b in zip("rkvwu", got, want):
+        scale = float(b.grad.float().abs().max())
+        err = float((a.grad.float() - b.grad.float()).abs().max())
+        assert err <= GRAD_TOL[dtype] * scale, (name, err, scale)
+    torch.cuda.synchronize()

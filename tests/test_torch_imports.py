@@ -3,7 +3,10 @@
 Every module of `repro_torch` (the runtime's checkpoint, chaos, runners,
 data pipeline, campaign launcher, chaos smoke and timing helper, the
 distributed runtime's partition, halo exchange, ocean, spawn helper and
-ocean cells, and the LM configs, models and serving launcher among them), `chip_smoke.py` (imported, not run) and the `obs_smoke` entry point
+ocean cells, the LM configs, models and serving launcher, and the LM
+training path's optimizer, gradient compression, training launcher and
+`train_lm` among them), `chip_smoke.py` (imported, not run) and the
+`obs_smoke` entry point
 are imported in a fresh interpreter in which a
 meta-path finder refuses `jax`, `jaxlib` and `repro`; the test then checks
 that none of them reached `sys.modules`.
@@ -27,6 +30,10 @@ RUNTIME = ("tree", "checkpoint.checkpoint", "runtime.chaos",
 LM = ("configs", "configs.base", "configs.archs", "models", "models.layers",
       "models.attention", "models.rwkv", "models.mamba", "models.moe",
       "models.model", "launch.serve")
+# the LM training path: the optimizer, the gradient compression, the
+# training launcher and the end-to-end training script
+TRAIN = ("optim", "optim.adamw", "optim.compression", "launch.train",
+         "train_lm")
 
 SCRIPT = textwrap.dedent(r"""
     import importlib, importlib.util, pkgutil, sys
@@ -68,7 +75,8 @@ def test_port_imports_no_jax_and_no_repro():
     n, names = int(lines[-1]), set(lines[-2].split())
     # every module of the package, obs and obs_smoke included
     assert n >= 35, res.stdout
-    assert names >= {f"repro_torch.{m}" for m in RUNTIME + LM}, res.stdout
+    assert names >= {f"repro_torch.{m}" for m in RUNTIME + LM + TRAIN}, \
+        res.stdout
 
 
 def test_finder_refuses_jax():

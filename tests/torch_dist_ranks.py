@@ -193,3 +193,31 @@ def wait_for_nothing(rank: int, n_ranks: int) -> int:
     import torch.distributed as dist
     dist.recv(torch.zeros(1), src=(rank + 1) % n_ranks)
     return rank
+
+
+# ---------------------------------------------------------------------------
+# int8 gradient compression over the ranks (tests/test_torch_optim.py)
+# ---------------------------------------------------------------------------
+COMPRESS_RANKS, COMPRESS_STEPS, COMPRESS_WIDTH = 4, 20, 1000
+
+
+def compress_grads(step: int) -> np.ndarray:
+    """Every rank's gradient at ``step``: (COMPRESS_RANKS, COMPRESS_WIDTH)
+    float32, growing with the step (the JAX substrate test's series)."""
+    g = np.random.default_rng(0).normal(
+        size=(COMPRESS_RANKS, COMPRESS_WIDTH)).astype(np.float32)
+    return (g * np.float32(1.0 + 0.1 * step)).astype(np.float32)
+
+
+def compress_steps(rank: int, n_ranks: int):
+    """COMPRESS_STEPS compressed all-reduces of this rank's row, with error
+    feedback; returns (means, error states), each (steps, width)."""
+    from repro_torch.optim import compression
+    e = {"w": torch.zeros(COMPRESS_WIDTH)}
+    means, errs = [], []
+    for step in range(COMPRESS_STEPS):
+        g = {"w": torch.from_numpy(compress_grads(step)[rank])}
+        m, e = compression.compressed_grad_psum(g, e)
+        means.append(m["w"].numpy())
+        errs.append(e["w"].numpy())
+    return np.stack(means), np.stack(errs)
