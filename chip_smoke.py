@@ -8,6 +8,7 @@
     python3 chip_smoke.py --distributed-only      # the build and phase 8
     python3 chip_smoke.py --serve-only            # the build and phase 9
     python3 chip_smoke.py --train-only            # the build and phase 10
+    python3 chip_smoke.py --mesh-only             # the build and phase 11
 
 With --k7-only, K7 through the default call of the repro_torch found in
 DIR (an earlier checkout's, to time two kernels in one run), by the three
@@ -16,7 +17,8 @@ around the plan's switch to global (the source of tridiag.MIN_BLOCKS);
 with --campaign-only, the build and phase 7 (phase 4's bare step is not
 run, so the runner's overhead over it is not printed); with
 --distributed-only, the build and phase 8; with --serve-only, the build
-and phase 9; with --train-only, the build and phase 10.  Each prints its
+and phase 9; with --train-only, the build and phase 10; with --mesh-only,
+the build and phase 11.  Each prints its
 lines, a JSON line and the card's name and power limit.
 Phases of the run with no arguments:
 
@@ -226,18 +228,47 @@ Phases of the run with no arguments:
                 repeated batch: every step's launches (K9 32, K8 64) as
                 predicted, the loss falling, ms a step and tok/s over steps
                 3-5, peak memory; (d) `python -m repro_torch.launch.train
-                --arch olmo-1b --reduced --steps 20` on the card, exit 0.
+                --arch olmo-1b --reduced --steps 20` on the card, exit 0;
+ 11. mesh     — the LM mesh path (`launch.mesh`, `models.sharding`,
+                DTensor leaves, K9 and K8 under `local_map`, `adamw` on
+                shards, the staged gloo group of `distributed.staged`):
+                olmo-1b and rwkv6-3b at full width and depth, bfloat16
+                parameters, float32 moments, remat, phase 10's B x T and
+                repeated batch, on a 2 x 2 ("data", "model") mesh of 4
+                ranks that share the card (one process each on cuda:0,
+                `distributed.spawn.run(device="cuda")`), laid out by
+                `launch.train`'s rules (TP over "model", FSDP over
+                "data"), MESH_STEPS in-place AdamW steps (olmo-1b 5,
+                rwkv6-3b 2) from the parameters of phase 10's seed,
+                against the same steps on one device (its leaves kept on
+                the card, which the ranks read through CUDA IPC): the
+                losses, each leaf's float32 m and v after the first and the
+                last step (of its max, each rank its own shards) and its
+                parameters (error norm over the change), as MESH_HELD says,
+                each within its limit or twice the model's own floor (the
+                single-device steps again with the kernels' outputs
+                perturbed by half a bfloat16 ulp); every rank's
+                launches a step as one device's (K9 32, K8 64), each call
+                on the rank's B / 2 rows of H / 2 heads, the first step's
+                calls held against plain on their inputs; prints per rank
+                the step times between barriers, the staged collectives and
+                their bytes a step, peak memory; ms a step on the slowest
+                rank, tokens/s, and the card's name and power limit.  The
+                ranks time-share one card: not a scaling figure.
 
 The line before the last is the card's `nvidia-smi` name and power limit;
 the line before that is the JSON kernel table (K8's and K9's `launches`
 are one training step's of phase 10, their prefills' under
-`launches_serve`); the last line is {"ok": true, "device": {...}}.
+`launches_serve`, phase 11's ranks' under `launches_mesh`); the last line
+is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -1856,13 +1887,14 @@ def phase_model(ptxas: dict) -> dict:
     return dict(results=results, launches=path)
 
 
-def model_rows(model: dict, serve: dict, train: dict) -> list:
+def model_rows(model: dict, serve: dict, train: dict, mesh: dict) -> list:
     """The K8 and K9 rows of the kernel table: the float32 and bfloat16
     numbers of MODEL_TABLE_CASE, with every case's numbers under `cases`.
     `launches` is the main path's: one step of phase 10's training of the
     model that runs the kernel (`launches_serve`: every prefill of phase 9;
-    `launches_kernel_phase`: phase 6's calls); K9's row adds its time with
-    the row statistics (phase 10 (a))."""
+    `launches_kernel_phase`: phase 6's calls; `launches_mesh`: every rank's
+    launches over phase 11's steps, each on the rank's own heads); K9's row
+    adds its time with the row statistics (phase 10 (a))."""
     rows = []
     for name, cname in MODEL_TABLE_CASE.items():
         on_path = {key: n for key, row in serve.items()
@@ -1881,10 +1913,14 @@ def model_rows(model: dict, serve: dict, train: dict) -> list:
                       for dt in ("f32", "bf16")}
                  for c, case in MODEL_CASES.items()
                  if (case["op"] == "wkv6") == (name == "wkv6")}
+        on_mesh = {f"mesh/{arch}": row["launches_mesh"]
+                   for arch, row in mesh.items()
+                   if f"{name}/cuda" in row["launches_per_rank_step"]}
         rows.append(dict(
             name=name, route="cuda", source=MODEL_SOURCE[name],
             replaces=REPLACES[name], launches=on_train[main_key],
             launches_path=main_key, launches_serve=on_path,
+            launches_mesh=on_mesh,
             launches_kernel_phase=model["launches"][(name, "cuda")],
             max_abs_err=r32["max_abs_err"], ms=r32["ms"],
             plain_ms=r32["plain_ms"], bound_ms=r32["bound_ms"],
@@ -3001,6 +3037,477 @@ def phase_training() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the LM mesh path, ranks sharing the card
+# ---------------------------------------------------------------------------
+MESH_SHAPE = (2, 2)       # ("data", "model"): 4 ranks, every one on cuda:0
+# steps of each model: rwkv6-3b's take 30-50 s on these ranks (NVIDIA H100),
+# so it runs 2 (one to warm up, one timed) to keep the whole script inside
+# its 1,200 s; olmo-1b's first MESH_WARMUP steps are not timed either
+MESH_STEPS = {"olmo-1b": 5, "rwkv6-3b": 2}
+MESH_WARMUP = {"olmo-1b": 2, "rwkv6-3b": 1}
+MESH_TIMEOUT_S = 900
+# What the mesh run is held to, against the single-device cuda steps from
+# the same parameters and batch (bfloat16 parameters and activations, the
+# sums in other orders and shapes), each reading within its MESH_BASE
+# limit or twice the model's own floor where that is more (phase 9's rule;
+# `mesh_floor`: the single-device steps again with every kernel output
+# perturbed by MESH_FLOOR_NOISE, half a bfloat16 ulp, the rounding each of
+# the mesh's bfloat16 partial sums adds):
+# - loss: each step's loss, relative; the first step's (the same
+#   parameters) within MESH_LOSS1;
+# - m1, v1: the float32 moments of every leaf after the first step (m =
+#   0.1 g, v = 0.05 g^2: the gradient itself), the largest element error
+#   over the leaf's max: m within KGRAD_TOL[bf16] (the limit phase 10 (a)
+#   holds the kernels' bfloat16 gradients to against plain), v within
+#   twice that (|g1^2 - g2^2| <= 2 |g1 - g2| max |g|);
+# - m_last, v_last: the same after the last step, where the two runs'
+#   parameters have parted too;
+# - update: each leaf's parameters after the last step, the norm of their
+#   difference over the norm of the single-device run's change (a mesh that
+#   left a leaf unchanged reads 1, one that flipped its updates 2).  An
+#   element-wise limit on the parameters cannot tell a fault: AdamW moves
+#   an element by about lr a step whatever its gradient's size, so an
+#   element whose gradient is rounding noise parts by 2 lr a step on a
+#   sound mesh, as far as any fault can take it.
+# The limits of m_last, v_last and update are about twice olmo-1b's
+# readings on a sound mesh (NVIDIA H100: 7.02e-2, 0.110, 0.103).  Planted
+# faults fail them: half the batch on each data rank reads 0.7-1.0 in
+# olmo-1b's m1; the parameters left unchanged (moments updated) 1.0 in its
+# update; u's gradient not summed over the data axis 0.85 in rwkv6-3b's
+# `bonus` m1, against twice its floor, 0.56.
+MESH_FLOOR_NOISE = 2.0 ** -9
+MESH_BASE = {"loss": 1e-2,
+             "m1": KGRAD_TOL[torch.bfloat16], "v1": 2 * KGRAD_TOL[torch.bfloat16],
+             "m_last": 0.15, "v_last": 0.25, "update": 0.25}
+# The first step's loss: olmo-1b's reads 1.823e-5 on a sound mesh; rwkv6-3b's
+# 9.487e-4, 3.2 times its floor (2.977e-4; the floor perturbs K8's outputs
+# alone, the mesh every tensor-parallel projection's partial sums), and a
+# fault that changes the forward (half the batch) reads 4.1e-4 in
+# olmo-1b's: in rwkv6-3b the moments, not the loss, tell a fault.
+MESH_LOSS1 = {"olmo-1b": 1e-4, "rwkv6-3b": 2e-3}
+# The readings each model holds.  The single-device leaves stay on the card
+# (the ranks read them through CUDA IPC; copying rwkv6-3b's 52 GB to the
+# host took 141 s), and beside rwkv6-3b's four ranks there is room for
+# one float32 copy of its parameters: m after step 1 (0.1 g, which also
+# fixes v1 = 0.05 g^2).  Its later readings sit at its floor on a sound
+# mesh, as far as a fault's (at 3 steps: m3 0.9-1.2 of a leaf's max,
+# update 0.8-0.9).
+MESH_HELD = {"olmo-1b": ("m1", "v1", "m_last", "v_last", "update"),
+             "rwkv6-3b": ("m1",)}
+
+
+def mesh_tags(name: str, steps: int) -> tuple:
+    """{step: the moments held after it} and whether the parameters are."""
+    out = {}
+    for t in MESH_HELD[name]:
+        if t != "update":
+            s = 1 if t[1:] == "1" else steps
+            out.setdefault(s, []).append(t[0])
+    return out, "update" in MESH_HELD[name]
+
+
+def mesh_piece(whole: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's shard, at ``placements`` on ``mesh``, of ``whole``, a
+    copy on the card."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, off = compute_local_shape_and_global_offset(whole.shape, mesh,
+                                                       placements)
+    return whole[tuple(slice(o, o + n) for o, n in zip(off, shape))].to("cuda")
+
+
+def mesh_leaf_errs(leaves, ref: list) -> list:
+    """Each DTensor leaf's largest element difference, on this rank's
+    shard, from the single-device leaf in ``ref``."""
+    out = []
+    for d, whole in zip(leaves, ref):
+        piece = mesh_piece(whole, d.device_mesh, d.placements)
+        out.append(float((d.to_local().float() - piece.float()).abs().max()))
+        del piece
+    return out
+
+
+def mesh_rank(rank: int, n_ranks: int, run: dict) -> dict:
+    """One rank of phase 11, a process on cuda:0 over the staged gloo group:
+    `launch.train`'s layout of ``run["arch"]`` on the mesh (bfloat16
+    parameters from SEED, as phase 10's), ``run["steps"]`` in-place AdamW
+    steps of the repeated batch, each timed between barriers with its
+    kernel launches, the (B*H) rows of each kernel call and the staged
+    collectives.  The first step's kernel calls are held once more against
+    plain on their own inputs (not counted).  After the first and the last
+    step the rank's shards of m and v, and after the last its parameters,
+    are held against the single-device run's leaves in ``run["ref"]``
+    (`mesh_reference`'s, on the card, read through CUDA IPC), as
+    `mesh_tags` says."""
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    from repro_torch.data.pipeline import TokenDataset
+    from repro_torch.distributed import staged
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.mesh import MeshSpec, make_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    # the only reference to the parent's leaves: they are released (to the
+    # parent's `torch.cuda.ipc_collect`) when this function returns
+    ref = run.pop("ref")
+    snaps, hold_p = mesh_tags(run["arch"].name, run["steps"])
+    mesh = make_mesh(MeshSpec(MESH_SHAPE, ("data", "model")), "cuda")
+    model = Model(run["arch"], dtype=torch.bfloat16, device="cuda")
+    peak = PeakMemory(torch.device("cuda"))
+    # each rank draws the whole seeded tree and keeps its shards; one rank
+    # at a time, so that only one whole tree is on the card at once
+    for r in range(n_ranks):
+        if r == rank:
+            params = sharding.distribute(model.init(SEED), ttrain.mesh_layout(
+                model, mesh, n_ranks), mesh)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    state = (params, adamw.init(params))
+    B, Tn = run["BT"]
+    ds = ttrain.MeshBatches(TokenDataset(vocab=model.arch.vocab, seq_len=Tn,
+                                         global_batch=B, seed=SEED,
+                                         device="cuda"), model, mesh)
+    batch = ds.batch_at(0)
+    step = ttrain.make_train_step(model, adamw.AdamWConfig(), inplace=True)
+    rows, losses, ms, launches, staged_steps = [], [], [], [], []
+    moment_errs, held_share = {}, None
+    for s in range(1, run["steps"] + 1):
+        calls = []
+        ops.reset_launches()
+        staged.reset_counts()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tapped_model_ops(calls):
+            state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        dist.barrier()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        launches.append({f"{k[0]}/{k[1]}": n for k, n in ops.LAUNCHES.items()})
+        staged_steps.append(dict(staged.COUNTS))
+        rows += [(name, int(a[0].shape[0])) for name, a, _ in calls]
+        if s == 1:
+            with torch.no_grad():
+                held_share = hold_path_calls(
+                    [(n, tuple(a.detach() if torch.is_tensor(a) else a
+                                for a in args), kw)
+                     for n, args, kw in calls],
+                    f"mesh {run['arch'].name} rank {rank}")
+        del calls
+        for kind in snaps.get(s, ()):
+            moment_errs[f"{kind}{s}"] = mesh_leaf_errs(
+                T.leaves(getattr(state[1], kind)), ref[f"{kind}{s}"])
+    peak_bytes = peak.read()
+    on_card = all((t.to_local() if hasattr(t, "to_local") else t).is_cuda
+                  for t in T.leaves(state))
+    p_max, p_sq = [], []
+    for d, whole in zip(T.leaves(state[0]), ref["p"] if hold_p else ()):
+        diff = d.to_local().float() - mesh_piece(
+            whole, d.device_mesh, d.placements).float()
+        # replicated shards are held by several ranks: count each once
+        copies = int(np.prod([mesh.size(j) for j, pl in enumerate(d.placements)
+                              if not pl.is_shard()]))
+        p_max.append(float(diff.abs().max()))
+        p_sq.append(float(torch.linalg.vector_norm(diff, dtype=torch.float64)
+                          ** 2) / copies)
+        del diff
+    return dict(rank=rank, losses=losses, ms=ms, launches=launches,
+                rows=sorted(set(rows)), n_rows=len(rows), staged=staged_steps,
+                peak_bytes=peak_bytes, on_card=on_card, held_share=held_share,
+                moment_errs=moment_errs, p_max=p_max, p_sq=p_sq,
+                local_params=sum(t.to_local().numel() for t in T.leaves(state[0])))
+
+
+def card_block(shapes: list, dtype) -> list:
+    """Empty tensors of ``shapes`` on the card, views of one allocation."""
+    sizes = [math.prod(s) for s in shapes]
+    block = torch.empty(sum(sizes), dtype=dtype, device="cuda")
+    return [v.view(s) for v, s in zip(block.split(sizes), shapes)]
+
+
+def share_of(err: float, scale: float) -> float:
+    return err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
+
+
+def single_steps(arch, BT, steps: int, noise: float = 0.0):
+    """Phase 10's in-place step of ``arch`` (bfloat16, float32 moments) from
+    SEED on the repeated batch, on one device: yields (step, state, loss,
+    ms) after each step.  With ``noise`` every kernel output is multiplied
+    by (1 + noise N(0, 1)) (`tapped_model_ops`, seeded)."""
+    from repro_torch.data.pipeline import TokenDataset
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    model = Model(arch, dtype=torch.bfloat16, device="cuda")
+    params = model.init(SEED)
+    state = (params, adamw.init(params))
+    B, Tn = BT
+    batch = TokenDataset(vocab=arch.vocab, seq_len=Tn, global_batch=B,
+                         seed=SEED, device="cuda").batch_at(0)
+    step = make_train_step(model, adamw.AdamWConfig(), inplace=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with (tapped_model_ops(noise=noise, gen=gen) if noise
+          else contextlib.nullcontext()):
+        for s in range(1, steps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            torch.cuda.synchronize()
+            yield s, state, float(loss), (time.perf_counter() - t0) * 1e3
+
+
+def mesh_reference(name: str, arch, BT, steps: int) -> dict:
+    """The single-device cuda steps phase 11 is held to (`single_steps`).
+    Returns the losses, ms a step, ``held``: copies on the card of each
+    leaf's float32 moments after the steps `mesh_tags` names (``m1``: m
+    after step 1, ``v5``: v after step 5) and of its parameters after the
+    last step (``p``), with each moment leaf's max (``maxes``), each leaf's
+    name and the norm of its change over the steps."""
+    from repro_torch import tree as T
+    from repro_torch.models.model import Model
+    snaps, hold_p = mesh_tags(name, steps)
+    # each held set in one block, taken before the run: copies made into
+    # the allocator's segments in mid-run would keep them all reserved
+    # (35.6 GiB for rwkv6-3b's 11.5 GB of m, with no room left for its ranks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes = [x.shape for x in T.leaves(Model(arch, dtype=torch.bfloat16,
+                                               device="meta").init_abstract())]
+    held = {f"{k}{s}": card_block(shapes, torch.float32)
+            for s, kinds in snaps.items() for k in kinds}
+    if hold_p:
+        held["p"] = card_block(shapes, torch.bfloat16)
+    losses, ms, maxes = [], [], {}
+    for s, state, loss, t in single_steps(arch, BT, steps):
+        losses.append(loss)
+        ms.append(t)
+        for kind in snaps.get(s, ()):
+            leaves = T.leaves(getattr(state[1], kind))
+            for dst, x in zip(held[f"{kind}{s}"], leaves):
+                dst.copy_(x)
+            maxes[f"{kind}{s}"] = [float(x.abs().max()) for x in leaves]
+        if s == steps:
+            names = [T.keystr(p) for p, _ in T.flatten_with_path(state[0])]
+            if hold_p:
+                for dst, x in zip(held["p"], T.leaves(state[0])):
+                    dst.copy_(x)
+    del state
+    change = []
+    if hold_p:
+        start = T.leaves(Model(arch, dtype=torch.bfloat16,
+                               device="cuda").init(SEED))
+        change = [float(torch.linalg.vector_norm(p.float() - p0.float(),
+                                                 dtype=torch.float64))
+                  for p, p0 in zip(held["p"], start)]
+        del start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, ms=ms, maxes=maxes, names=names,
+                change=change, held=held)
+
+
+def mesh_floor(name: str, arch, BT, steps: int, ref: dict) -> dict:
+    """Phase 9's floor, for phase 11: the single-device steps again, as far
+    as the last held reading, with every kernel output multiplied by (1 +
+    MESH_FLOOR_NOISE N(0, 1)); each reading of `mesh_readings` taken of
+    this run against ``ref``'s: how far a sound perturbation of the size of
+    the mesh's bfloat16 roundings parts two runs of this model, leaf by
+    leaf, and each step's loss."""
+    from repro_torch import tree as T
+    snaps, hold_p = mesh_tags(name, steps)
+    last = steps if hold_p else max(snaps)
+    out = {"loss": []}
+    for s, state, loss, _ in single_steps(arch, BT, last,
+                                          noise=MESH_FLOOR_NOISE):
+        want = ref["losses"][s - 1]
+        out["loss"].append(abs(loss - want) / abs(want))
+        for kind in snaps.get(s, ()):
+            tag = f"{kind}{s}"
+            out[tag] = [share_of(float((x - h).abs().max()), mx)
+                        for x, h, mx in zip(T.leaves(getattr(state[1], kind)),
+                                            ref["held"][tag], ref["maxes"][tag])]
+        if s == steps and hold_p:
+            out["update"] = [share_of(float(torch.linalg.vector_norm(
+                x.float() - h.float(), dtype=torch.float64)), c)
+                for x, h, c in zip(T.leaves(state[0]), ref["held"]["p"],
+                                   ref["change"])]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_readings(ranks: list, ref: dict) -> dict:
+    """Each leaf's readings over the ranks: every snapshot's moment error
+    as a share of the single-device leaf's max, and the parameters' error
+    norm over the single-device change (and the largest element error)."""
+    out = {}
+    for tag, maxes in ref["maxes"].items():
+        out[tag] = [share_of(max(r["moment_errs"][tag][i] for r in ranks), m)
+                    for i, m in enumerate(maxes)]
+    if ref["change"]:
+        out["update"] = [share_of(sum(r["p_sq"][i] for r in ranks) ** 0.5, c)
+                         for i, c in enumerate(ref["change"])]
+        out["p_max"] = [max(r["p_max"][i] for r in ranks)
+                        for i in range(len(ref["change"]))]
+    return out
+
+
+def mesh_limits(tag: str, floor: list) -> list:
+    """Each leaf's limit for reading ``tag``: MESH_BASE's, or twice the
+    model's own floor where that is more (phase 9's rule)."""
+    base = MESH_BASE[tag if tag == "update" else
+                     tag[0] + ("1" if tag[1:] == "1" else "_last")]
+    return [max(base, 2 * f) for f in floor]
+
+
+def phase_mesh(configs: dict) -> dict:
+    """Phase 11: each config trained on a MESH_SHAPE mesh of ranks that
+    share the card (`launch.train --mesh`'s layout, DTensor leaves, the
+    staged gloo group), MESH_STEPS of its steps, against the single-device
+    cuda steps from the same parameters and batch (`mesh_reference`), beside
+    the model's own floor (`mesh_floor`).  Every rank must launch K9 / K8
+    as the single-device step does, each call on the rank's own rows (B /
+    data) times heads (H / model), and the first step's calls must agree
+    with plain on their inputs; the losses, moments and parameters are
+    held as MESH_BASE's comment says.  Every config runs before a failure
+    is raised.  These ranks time-share one card and stage their
+    all-gathers through the host: the times are a record of this path, not
+    a scaling figure."""
+    from repro_torch.distributed import spawn
+    from repro_torch.models.model import Model
+
+    res, failures = {}, []
+    for name, arch in configs.items():
+        t_phase = time.perf_counter()
+        BT = TRAIN_BT[name]
+        model = Model(arch, dtype=torch.bfloat16, device="meta")
+        want_launches = {f"{k}/cuda": n for k, n in
+                         train_kernels_per_step(model).items()}
+        heads = (arch.d_model // arch.rwkv.head_dim if arch.rwkv
+                 else arch.n_heads)
+        op = "wkv6" if arch.rwkv else "attention"
+        data, tp = MESH_SHAPE
+        want_rows = [(op, BT[0] // data * heads // tp)]
+        steps = MESH_STEPS[name]
+        t0 = time.perf_counter()
+        ref = mesh_reference(name, arch, BT, steps)
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        floor = mesh_floor(name, arch, BT, steps, ref)
+        floor_s = time.perf_counter() - t0
+        log(f"mesh {name}: one device's {steps} steps in {ref_s:.1f} s, the "
+            f"floor's {len(floor['loss'])} in {floor_s:.1f} s; the parent keeps "
+            f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved on the "
+            f"card")
+        t0 = time.perf_counter()
+        ranks = spawn.run(mesh_rank, data * tp, timeout_s=MESH_TIMEOUT_S,
+                          device="cuda", args=(dict(
+                              arch=arch, BT=BT, steps=steps,
+                              ref=ref["held"]),))
+        wall = time.perf_counter() - t0
+        del ref["held"]
+        gc.collect()
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+        read = mesh_readings(ranks, ref)
+        read["loss"] = [abs(a - b) / abs(b) for a, b in
+                        zip(ranks[0]["losses"], ref["losses"])]
+        limits = {k: mesh_limits(k, floor[k]) for k in floor if k != "loss"}
+        # the floor's run stops at the last held reading; later losses keep
+        # their base limit
+        limits["loss"] = [max(MESH_LOSS1[name] if s == 0 else MESH_BASE["loss"],
+                              2 * f) for s, f in enumerate(floor["loss"])]
+        limits["loss"] += [MESH_BASE["loss"]] * (steps - len(limits["loss"]))
+        names = ref["names"]
+        # each reading's worst leaf (or step, for the loss) by its share of
+        # its limit
+        worst = {}
+        for k, lim in limits.items():
+            i = max(range(len(lim)), key=lambda j: read[k][j] / lim[j])
+            worst[k] = dict(at=i + 1 if k == "loss" else names[i],
+                            value=read[k][i],
+                            floor=floor[k][i] if i < len(floor[k]) else None,
+                            limit=lim[i], of_limit=read[k][i] / lim[i])
+        slowest = [max(r["ms"][i] for r in ranks) for i in range(steps)]
+        timed = slowest[MESH_WARMUP[name]:]
+        ms = float(np.mean(timed))
+        staged_last = ranks[0]["staged"][-1]
+        held_share = max(r["held_share"] for r in ranks)
+        row = dict(
+            shape=MESH_SHAPE, B=BT[0], T=BT[1], layers=arch.n_layers,
+            steps=steps, losses=ranks[0]["losses"], ref_losses=ref["losses"],
+            loss_rel_errs=read["loss"], floor_loss=floor["loss"], worst=worst,
+            leaves={n: {k: v[i] for k, v in read.items() if k != "loss"}
+                    for i, n in enumerate(names)},
+            floor_leaves={n: {k: v[i] for k, v in floor.items() if k != "loss"}
+                          for i, n in enumerate(names)},
+            path_calls_limit_share=held_share,
+            ms_slowest=slowest, ms=ms, tok_s=BT[0] * BT[1] / ms * 1e3,
+            ref_ms=ref["ms"], launches_per_rank_step=ranks[0]["launches"][-1],
+            rows=ranks[0]["rows"],
+            heads_per_call=want_rows[0][1] // (BT[0] // data),
+            launches_mesh=sum(sum(st.get(k, 0) for st in r["launches"])
+                              for r in ranks for k in want_launches),
+            staged_per_step=staged_last,
+            peak_bytes=[r["peak_bytes"] for r in ranks],
+            local_params=[r["local_params"] for r in ranks],
+            wall_s=wall, seconds=time.perf_counter() - t_phase)
+        res[name] = row
+        for r in ranks:
+            log(f"mesh {name} rank {r['rank']}: launches a step "
+                f"{r['launches'][-1]}, kernel calls {r['n_rows']} on rows "
+                f"{r['rows']}, step 1's against plain at "
+                f"{r['held_share']:.3f} of their limit at most, step ms "
+                f"{[round(t, 1) for t in r['ms']]}, staged a step "
+                f"{r['staged'][-1]}, peak memory "
+                f"{r['peak_bytes'] / 2**30:.3f} GiB, {r['local_params']} "
+                f"parameter elements held")
+        for i, n in enumerate(names):
+            log(f"mesh {name} leaf {n}: reading (floor) " + ", ".join(
+                f"{k} {read[k][i]:.4e} ({floor[k][i]:.4e})" for k in floor
+                if k != "loss") + (f", p_max {read['p_max'][i]:.4e}"
+                                   if "p_max" in read else ""))
+        log(f"mesh {name} ({arch.n_layers} layers, d {arch.d_model}, bf16 "
+            f"params, f32 moments, remat {arch.remat}, B {BT[0]} x T "
+            f"{BT[1]}, mesh {MESH_SHAPE} of ranks sharing the card): losses "
+            f"{[round(x, 4) for x in ranks[0]['losses']]} against one "
+            f"device's {[round(x, 4) for x in ref['losses']]} (rel "
+            f"{[float(f'{e:.3e}') for e in read['loss']]}, the floor's "
+            f"{[float(f'{e:.3e}') for e in floor['loss']]}); each reading's "
+            f"worst against its limit (moments: of the leaf's max; update: "
+            f"error norm over the change): {worst}; {op} {want_rows[0][1]} "
+            f"rows a call ({row['heads_per_call']} heads of {heads} a rank); "
+            f"step 1's kernel calls against plain {held_share:.3f} of their "
+            f"limit at most; ms a step on the slowest rank, steps "
+            f"{MESH_WARMUP[name] + 1}-{steps}: {ms:.1f} ({row['tok_s']:.1f} "
+            f"tok/s; one device "
+            f"{float(np.mean(ref['ms'][MESH_WARMUP[name]:])):.1f} ms), "
+            f"every step {[round(t, 1) for t in slowest]}; staged a step "
+            f"{staged_last}; {wall:.1f} s with spawn; four ranks time-share "
+            f"one card: not a scaling figure; nvidia-smi: {nvidia_smi()}")
+        checks = {
+            **{k: w["of_limit"] <= 1.0 for k, w in worst.items()},
+            "on the card": all(r["on_card"] for r in ranks),
+            f"launches {want_launches} a step": all(
+                st == want_launches for r in ranks for st in r["launches"]),
+            f"rows {want_rows}": all(r["rows"] == want_rows for r in ranks),
+            "finite": bool(np.isfinite(ranks[0]["losses"]).all())}
+        failures += [f"{name}: {k}" for k, ok in checks.items() if not ok]
+        del ranks, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"mesh: {failures}: "
+                             f"{ {n: r['worst'] for n, r in res.items()} }")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k7-only", action="store_true",
@@ -3015,6 +3522,8 @@ def main(argv=None) -> int:
                     help="only build and run phase 9 (phase_serve)")
     ap.add_argument("--train-only", action="store_true",
                     help="only build and run phase 10 (phase_training)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="only build and run phase 11 (phase_mesh)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory holding repro_torch (default: ./src)")
     args = ap.parse_args(argv)
@@ -3064,6 +3573,16 @@ def main(argv=None) -> int:
         cuda_lib.build()
         train_res = phase_training()
         print(json.dumps({"train": train_res}))
+        print(nvidia_smi())
+        return 0
+
+    if args.mesh_only:
+        log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}")
+        cuda_lib.build()
+        t0 = time.perf_counter()
+        mesh_res = phase_mesh(train_configs())
+        log(f"mesh: phase 11 in {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"mesh": mesh_res}))
         print(nvidia_smi())
         return 0
 
@@ -3129,6 +3648,13 @@ def main(argv=None) -> int:
     train_res = phase_training()
     print(json.dumps({"train": train_res}))
 
+    # 11. the LM mesh path: olmo-1b and rwkv6-3b on a 2 x 2 mesh of ranks
+    # that share the card, against the single-device step
+    t0 = time.perf_counter()
+    mesh_res = phase_mesh(train_configs())
+    log(f"mesh: phase 11 in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"mesh": mesh_res}))
+
     table = []
     for name, label in TABLE_CASE.items():
         r32, r64 = kres[(name, label, "f32")], kres[(name, label, "f64")]
@@ -3186,7 +3712,7 @@ def main(argv=None) -> int:
             table[-1]["cases"] = cases
             table[-1]["sass"] = {v: n for v, n in sass.items()
                                  if v.startswith(name)}
-    for row in model_rows(model, serve_res, train_res):
+    for row in model_rows(model, serve_res, train_res, mesh_res):
         if row["name"] == "flash_attention":
             row["sass"] = sass
         table.append(row)

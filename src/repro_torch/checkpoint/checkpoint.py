@@ -25,6 +25,16 @@ on one given device, on the device of a matching tree of devices, or by
 default on its template leaf's device: a checkpoint written from the card
 restores onto the CPU and back.
 
+DTensor leaves (a state laid out on a mesh, `models/sharding`): a leaf is
+saved as its global array, JAX's elastic format, so the file is the one a
+single device writes and either framework reads.  Every rank gathers each
+leaf (the save is a collective, and blocking), rank 0 writes the step,
+and the others wait until it has landed; a failed write raises on every
+rank.  ``restore`` puts a leaf whose template is a DTensor back on the
+template's mesh and placements (JAX's ``restore(..., shardings=)``), each
+rank keeping its shard of the array it reads; a plain template leaf
+restores onto one device as before.
+
 bfloat16 leaves: numpy has no bfloat16, so a leaf is written as its raw
 2-byte elements (numpy's ``V2``), the elements the JAX package's
 `np.save` of an ml_dtypes bfloat16 array writes (numpy reads both files
@@ -47,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import tree as T
+from ..launch.mesh import is_dtensor
 
 FORMAT = 2
 
@@ -112,6 +123,15 @@ def _device_of(leaf) -> torch.device:
     return leaf.device if isinstance(leaf, torch.Tensor) else torch.device("cpu")
 
 
+def _place(t: torch.Tensor, tmpl, device) -> torch.Tensor:
+    """A loaded global array on ``device``, or on the mesh and placements
+    of a DTensor template leaf (this rank's shard)."""
+    if not is_dtensor(tmpl):
+        return t.to(device)
+    from ..launch.mesh import shard
+    return shard(t, tmpl.device_mesh, tmpl.placements)
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep_last: int = 3):
         self.dir = directory
@@ -127,39 +147,63 @@ class Checkpointer:
         Raises ``CheckpointError`` here if the PREVIOUS async save failed:
         the error from the worker thread surfaces at the next save/wait."""
         self.wait()
-        host = {k: _host_copy(v) for k, v in _flatten(tree).items()}
-
-        def work():
-            try:
-                from ..runtime import chaos
-                chaos.site("checkpoint.write", step=step, directory=self.dir)
-                tmp = os.path.join(self.dir, f".tmp_step_{step}")
-                final = os.path.join(self.dir, _step_name(step))
-                shutil.rmtree(tmp, ignore_errors=True)
-                os.makedirs(tmp)
-                manifest: Dict[str, dict] = {}
-                for k, v in host.items():
-                    np.save(os.path.join(tmp, _leaf_file(k)), v)
-                    manifest[k] = dict(crc32=_crc(v), shape=list(v.shape),
-                                       dtype=_dtype_name(v))
-                with open(os.path.join(tmp, "meta.json"), "w") as f:
-                    json.dump({"step": step, "format": FORMAT,
-                               "keys": sorted(host.keys()),
-                               "leaves": manifest}, f)
-                shutil.rmtree(final, ignore_errors=True)
-                os.rename(tmp, final)
-                with open(os.path.join(self.dir, "latest"), "w") as f:
-                    f.write(os.path.basename(final))
-                self._prune()
-                chaos.site("checkpoint.saved", step=step, directory=self.dir,
-                           path=final)
-            except BaseException as e:           # surfaces at next wait()
-                self._error = e
-
-        self._thread = threading.Thread(target=work, daemon=True)
+        flat = _flatten(tree)
+        if any(is_dtensor(v) for v in flat.values()):
+            return self._save_gathered(step, flat)
+        host = {k: _host_copy(v) for k, v in flat.items()}
+        self._thread = threading.Thread(target=self._write, args=(step, host),
+                                        daemon=True)
         self._thread.start()
         if blocking:
             self.wait()
+
+    def _save_gathered(self, step: int, flat: dict):
+        """`save` of a tree with DTensor leaves, on every rank: each leaf
+        gathered whole, rank 0 writing, every rank raising if it failed."""
+        import torch.distributed as dist
+        rank = dist.get_rank()
+        host = {}
+        for k, v in flat.items():
+            whole = v.full_tensor() if is_dtensor(v) else v
+            if rank == 0:
+                host[k] = _host_copy(whole)
+            del whole
+        if rank == 0:
+            self._write(step, host)
+        err = [None if self._error is None else repr(self._error)]
+        dist.broadcast_object_list(err, src=0)
+        self._error = None
+        if err[0] is not None:
+            raise CheckpointError(f"checkpoint save on rank 0 failed: {err[0]}")
+
+    def _write(self, step: int, host: dict):
+        """Write the host arrays as step ``step`` (atomically); a failure is
+        kept for the next `wait`."""
+        try:
+            from ..runtime import chaos
+            chaos.site("checkpoint.write", step=step, directory=self.dir)
+            tmp = os.path.join(self.dir, f".tmp_step_{step}")
+            final = os.path.join(self.dir, _step_name(step))
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            manifest: Dict[str, dict] = {}
+            for k, v in host.items():
+                np.save(os.path.join(tmp, _leaf_file(k)), v)
+                manifest[k] = dict(crc32=_crc(v), shape=list(v.shape),
+                                   dtype=_dtype_name(v))
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump({"step": step, "format": FORMAT,
+                           "keys": sorted(host.keys()),
+                           "leaves": manifest}, f)
+            shutil.rmtree(final, ignore_errors=True)
+            os.rename(tmp, final)
+            with open(os.path.join(self.dir, "latest"), "w") as f:
+                f.write(os.path.basename(final))
+            self._prune()
+            chaos.site("checkpoint.saved", step=step, directory=self.dir,
+                       path=final)
+        except BaseException as e:           # surfaces at next wait()
+            self._error = e
 
     def wait(self):
         """Join any in-flight save; raise its failure as CheckpointError."""
@@ -298,7 +342,7 @@ class Checkpointer:
                 raise CheckpointError(
                     f"{_step_name(step)}: leaf {k!r} dtype {arr.dtype} != "
                     f"template {_np_dtype(tmpl)}")
-            out[k] = _from_host(arr).to(dev_flat[k])
+            out[k] = _place(_from_host(arr), tmpl, dev_flat[k])
         return out
 
     def _devices(self, flat: dict, devices: Any) -> dict:

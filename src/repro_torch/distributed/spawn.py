@@ -4,10 +4,13 @@
 
 `fn(rank, n_ranks, *args)` runs in P fresh processes (`torch.multiprocessing`
 with the spawn method), each after `torch.distributed.init_process_group`
-on gloo with a `FileStore` in a temporary directory, so no port is
-opened.  `fn` must be importable by module path and its arguments and
-result picklable.  Each rank uses one intra-op thread: the ranks share the
-host's cores.
+with a `FileStore` in a temporary directory, so no port is opened: on
+gloo for ``device="cpu"``; for ``device="cuda"`` every rank computes on
+cuda:0 (the ranks share the card, and NCCL refuses two ranks on one
+device) over `staged.StagedGroup`, gloo with the collectives gloo refuses
+on CUDA tensors staged through the host.  `fn` must be importable by
+module path and its arguments and result picklable.  Each rank uses one
+intra-op thread: the ranks share the host's cores.
 
 The parent returns the ranks' results in rank order.  It never waits past
 its deadline: a rank that raises, or dies without a result, or a run that
@@ -37,14 +40,20 @@ KILL_WAIT_S = 120.0     # how long a killed rank may take to be gone
 
 
 def _rank_main(rank: int, n_ranks: int, store_path: str, fn: Callable,
-               args: Sequence, results) -> None:
+               args: Sequence, results, device: str) -> None:
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
     try:
+        backend = "gloo"
+        if device == "cuda":
+            from . import staged
+            torch.cuda.set_device(0)
+            staged.register()
+            backend = staged.NAME
         store = dist.FileStore(store_path, n_ranks)
         dist.init_process_group(
-            "gloo", store=store, rank=rank, world_size=n_ranks,
+            backend, store=store, rank=rank, world_size=n_ranks,
             timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
         try:
             out = fn(rank, n_ranks, *args)
@@ -57,17 +66,19 @@ def _rank_main(rank: int, n_ranks: int, store_path: str, fn: Callable,
 
 
 def run(fn: Callable, n_ranks: int, args: Sequence = (),
-        timeout_s: float = 600.0) -> List[Any]:
+        timeout_s: float = 600.0, device: str = "cpu") -> List[Any]:
     """`fn(rank, n_ranks, *args)` on `n_ranks` processes; their results in
     rank order.  Raises RuntimeError when a rank fails, TimeoutError when
     the run outlasts `timeout_s`; every rank is ended either way."""
+    if device not in ("cpu", "cuda"):
+        raise ValueError(f"spawn.run: device {device!r} is not cpu or cuda")
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="ranks_")
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(r, n_ranks, os.path.join(tmp, "store"),
-                               fn, tuple(args), results))
+                               fn, tuple(args), results, device))
              for r in range(n_ranks)]
     deadline = time.monotonic() + timeout_s
     got = {}

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .layers import Draw
+from .layers import Draw, is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +89,36 @@ def _dt_b_c(p, u):
     return dt, u @ p["w_B"].float(), u @ p["w_C"].float()
 
 
+_SSM_KEYS = ("w_xdt", "w_dt", "dt_bias", "w_B", "w_C", "A_log", "D")
+
+
+def _ssm_rows(u, w_xdt, w_dt, dt_bias, w_B, w_C, A_log, D):
+    """The selective scan of float32 activations u (B, T, di)."""
+    dt, Bm, Cm = _dt_b_c(dict(w_xdt=w_xdt, w_dt=w_dt, dt_bias=dt_bias,
+                              w_B=w_B, w_C=w_C), u)
+    return _ssm_scan(u, dt, Bm, Cm, -torch.exp(A_log), D)
+
+
+def _ssm(u, *weights):
+    """`_ssm_rows`; on a DTensor under `local_map`, each rank scanning its
+    own batch rows over every channel with whole weights (replicated over
+    "model": DTensor cannot add the partial sum that the di-sharded
+    projection to dt gives to the di-sharded bias), the weights' gradients
+    partial sums over the mesh dims that split the rows."""
+    if not is_dtensor(u):
+        return _ssm_rows(u, *weights)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(q if q == Shard(0) else Replicate() for q in u.placements)
+    whole = (Replicate(),) * u.device_mesh.ndim
+    partial = tuple(Partial() if q == Shard(0) else Replicate() for q in pl)
+    n = len(weights)
+    return local_map(_ssm_rows, out_placements=(pl,),
+                     in_placements=(pl,) + (whole,) * n,
+                     in_grad_placements=(pl,) + (partial,) * n,
+                     redistribute_inputs=True)(u, *weights)
+
+
 def mamba_apply(p, x, cfg: MambaCfg):
     """Train/prefill: x (B, T, D) -> (B, T, D)."""
     B, T, D = x.shape
@@ -99,9 +129,7 @@ def mamba_apply(p, x, cfg: MambaCfg):
     conv = sum(xpad[:, k:k + T, :] * p["conv_w"][k][None, None]
                for k in range(cfg.d_conv)) + p["conv_b"]
     u = F.silu(conv).float()
-    dt, Bm, Cm = _dt_b_c(p, u)
-    A = -torch.exp(p["A_log"])
-    y = _ssm_scan(u, dt, Bm, Cm, A, p["D"])
+    y = _ssm(u, *(p[k] for k in _SSM_KEYS))
     return (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
 
 

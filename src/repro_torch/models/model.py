@@ -21,9 +21,36 @@ sub-layer's forward again (K9 and K8 included); `remat_groups` = g > 1
 (dividing the super-blocks) also checkpoints each group of n_super / g
 super-blocks as a whole.  The numbers do not change.
 
-Left out, because one card has no use for them: JAX's sharding attributes
-(`logits_sharding`, `act_sharding`, `head_sharding`, `moe_hidden_sharding`,
-`pad_heads_to`, ...), which pin GSPMD layouts over a mesh.
+On a mesh (`models/sharding`, `launch/train --mesh`) the parameters and
+the batch are DTensors and every function above runs on them unchanged:
+DTensor's sharding rules stand in for GSPMD, and the attention core and
+the WKV recurrence run under `local_map`, each rank launching K9 / K8 on
+its own heads (`layers.attention`, `rwkv.time_mix`).  JAX's layout hooks,
+each None by default or a (DeviceMesh, placements) pair, are applied with
+`redistribute` where JAX applies `with_sharding_constraint`, and only to
+DTensors: `logits_sharding` (the logits in the loss), `act_sharding` (the
+residual stream between sub-layers), `act_inner_sharding` (a sub-layer's
+input), `attn_head_sharding` (q, k, v at (B, H, T, d), and the placements
+of the attention core), `head_sharding` (RWKV's r, k, v, w at (B, H, T,
+K), and the placements of the WKV core; JAX pins them merged, (B*H, T,
+K)), `moe_hidden_sharding` (the MoE dispatch in decode; decode does not
+run on DTensors yet, so `moe.moe_apply` alone has been run with it on a
+mesh) and `pad_heads_to` (`AttnCfg.pad_heads_to`).  On one device they
+change nothing.
+
+Each sub-layer first gathers its weights' FSDP shards (`layers.
+gather_fsdp`, FSDP's gather before use; the tensor-parallel shards stay).
+Where DTensor has no dependable sharding rule for an op of the path, the
+op runs under `local_map` on whole tensors of each rank's rows
+(`redistribute` to `Replicate()` on the other dims):
+  * the token lookup, `layers.py:164` `embed_lookup` (the embedding table
+    whole);
+  * the loss's gather, `layers.py:181` `token_nll` (the logits' vocab
+    whole);
+  * MoE routing's top-k and one-hot, `moe.py:63` `_route` (every expert's
+    probability whole);
+  * mamba's selective scan, `mamba.py:102` `_ssm` (every channel whole,
+    its weights replicated over "model").
 """
 from __future__ import annotations
 
@@ -74,10 +101,11 @@ def block_program(arch: ArchConfig) -> List[SubLayer]:
     return [SubLayer("attn", "dense", window=arch.window)]
 
 
-def _attn_cfg(arch: ArchConfig, window) -> AttnCfg:
+def _attn_cfg(arch: ArchConfig, window, pad_heads_to=None) -> AttnCfg:
     return AttnCfg(n_heads=arch.n_heads, n_kv=arch.n_kv, head_dim=arch.hd,
                    rope_theta=arch.rope_theta, window=window,
-                   softcap=arch.softcap_attn, causal=arch.causal)
+                   softcap=arch.softcap_attn, causal=arch.causal,
+                   pad_heads_to=pad_heads_to)
 
 
 def _index(tree, s: int):
@@ -116,6 +144,15 @@ class Model:
         if backend not in (None, "auto"):
             dispatch.Backend(backend)          # raises on an unknown name
         self.backend = backend
+        # layout hooks on a mesh, (DeviceMesh, placements) or None (see the
+        # module's docstring)
+        self.logits_sharding = None
+        self.act_sharding = None        # residual stream BETWEEN sub-layers
+        self.act_inner_sharding = None  # a sub-layer's input
+        self.head_sharding = None       # RWKV's (B, H, T, K) heads
+        self.moe_hidden_sharding = None  # decode: pin (B, T, E, F) dispatch
+        self.pad_heads_to = None        # TP head padding (see AttnCfg)
+        self.attn_head_sharding = None  # (B, H, T, d) q, k, v
         # two-level remat: each group of n_super / remat_groups super-blocks
         # checkpointed as a whole (JAX's `remat_groups`; None: per sub-layer)
         self.remat_groups = None
@@ -175,16 +212,21 @@ class Model:
     # -------------------------------------------------------------- sublayer
     def _apply_sub(self, p, x, sub: SubLayer, positions):
         a = self.arch
+        p = layers.gather_fsdp(p)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         h = layers.norm(x, p["ln1"], a.norm)
         if sub.mixer == "rwkv":
-            tm, _ = rwkv.time_mix(p["rwkv"], h, a.rwkv, backend=self.backend)
+            tm, _ = rwkv.time_mix(p["rwkv"], h, a.rwkv, backend=self.backend,
+                                  head_sharding=self.head_sharding)
             x = x + tm
             cm, _ = rwkv.channel_mix(p["rwkv"], layers.norm(x, p["ln2"], a.norm))
             return x + cm, aux
         if sub.mixer == "attn":
-            mix = layers.attention(p["attn"], h, _attn_cfg(a, sub.window),
-                                   positions, backend=self.backend)
+            mix = layers.attention(
+                p["attn"], h,
+                _attn_cfg(a, sub.window, pad_heads_to=self.pad_heads_to),
+                positions, backend=self.backend,
+                head_sharding=self.attn_head_sharding)
         else:
             mix = mamba.mamba_apply(p["mamba"], h, a.mamba)
         x = x + mix
@@ -205,26 +247,34 @@ class Model:
     def _embed(self, params, batch):
         a = self.arch
         if a.frontend == "audio":
-            return batch["frame_embeds"].to(self.dtype) @ params["audio_proj"]
-        x = self._scale_embed(params["embed"][batch["tokens"]])
+            proj = layers.gather_fsdp(params["audio_proj"])
+            return batch["frame_embeds"].to(self.dtype) @ proj
+        x = self._scale_embed(layers.embed_lookup(params["embed"],
+                                                  batch["tokens"]))
         if a.frontend == "vlm":
-            pe = batch["patch_embeds"].to(self.dtype) @ params["vlm_proj"]
+            pe = batch["patch_embeds"].to(self.dtype) @ layers.gather_fsdp(
+                params["vlm_proj"])
             x = torch.cat([pe, x[:, a.n_patches:]], dim=1)
         return x
 
     def _logits(self, params, x):
         a = self.arch
         x = layers.norm(x, params["final_norm"], a.norm)
-        head = params["embed"].T if a.tie_embeddings else params["head"]
+        head = layers.gather_fsdp(params["embed"]).T if a.tie_embeddings \
+            else layers.gather_fsdp(params["head"])
         logits = x @ head
         if a.softcap_logits is not None:
             logits = a.softcap_logits * torch.tanh(logits / a.softcap_logits)
         return logits
 
     # ---------------------------------------------------------------- forward
+    def _apply_pinned(self, p, x, sub: SubLayer, positions):
+        return self._apply_sub(p, layers.pin(x, self.act_inner_sharding), sub,
+                               positions)
+
     def forward(self, params, batch):
         """Full-sequence forward -> (logits (B, T, V), aux_loss)."""
-        x = self._embed(params, batch)
+        x = layers.pin(self._embed(params, batch), self.act_sharding)
         positions = torch.arange(x.shape[1], device=x.device)
         remat = self.arch.remat and torch.is_grad_enabled()
 
@@ -235,10 +285,11 @@ class Model:
                 for i, sub in enumerate(self.program):
                     p = _index(params["blocks"][f"sub{i}"], s)
                     if remat:
-                        x, a_ = checkpoint(self._apply_sub, p, x, sub,
+                        x, a_ = checkpoint(self._apply_pinned, p, x, sub,
                                            positions, use_reentrant=False)
                     else:
-                        x, a_ = self._apply_sub(p, x, sub, positions)
+                        x, a_ = self._apply_pinned(p, x, sub, positions)
+                    x = layers.pin(x, self.act_sharding)
                     aux = aux + a_
             return x, aux
 
@@ -259,14 +310,12 @@ class Model:
         the MoE aux loss, as a value."""
         a = self.arch
         logits, aux = self.forward(params, batch)
+        logits = layers.pin(logits, self.logits_sharding)
         labels = batch["labels"]
         if a.causal and not a.encoder_only:
             logits = logits[:, :-1]
             labels = labels[:, 1:]
-        lf = logits.float()
-        lse = torch.logsumexp(lf, dim=-1)
-        gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-        return (lse - gold).mean() + aux
+        return layers.token_nll(logits.float(), labels).mean() + aux
 
     def prefill(self, params, batch):
         """Full-sequence forward returning last-token logits (B, V)."""
@@ -319,7 +368,8 @@ class Model:
         x = x + mix
         h2 = layers.norm(x, p["ln2"], a.norm)
         if sub.ffn == "moe":
-            ffn, _ = moe.moe_apply(p["moe"], h2, a.moe)
+            ffn, _ = moe.moe_apply(p["moe"], h2, a.moe,
+                                   hidden_sharding=self.moe_hidden_sharding)
         else:
             ffn = layers.mlp(p["mlp"], h2, a.act)
         return x + ffn, new_c
@@ -365,10 +415,15 @@ def value_and_grad(fn, params, *args):
     floating parameter tensors.  The gradient is a tree of ``params``'
     structure, each leaf in its parameter's dtype (zeros where the value
     does not depend on the leaf, as JAX gives).  ``params`` itself is left
-    as it is (the function sees detached leaves that require grad)."""
+    as it is (the function sees detached leaves that require grad).  On a
+    mesh (DTensor leaves) the value is made whole, a plain scalar on every
+    rank, before the backward, and each gradient is a DTensor on whatever
+    placements autograd gives it."""
     xs = [t.detach().requires_grad_() for t in tree.leaves(params)]
     with torch.enable_grad():
         value = fn(tree.unflatten(params, xs), *args)
+        if layers.is_dtensor(value):
+            value = value.full_tensor()
         grads = torch.autograd.grad(value, xs, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(xs, grads)]
     return value.detach(), tree.unflatten(params, grads)

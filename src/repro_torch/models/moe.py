@@ -12,7 +12,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from .layers import Draw
+from .layers import Draw, is_dtensor, pin
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,19 +51,44 @@ def top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_apply(p, x, cfg: MoeCfg):
-    """x (B, T, D) -> (out, aux_loss)."""
+def _route_rows(probs, k: int, n_experts: int):
+    """(combine weights (B, T, E): zero except the top k, renormalised;
+    picks (B, T, E): 1 for each of the top k)."""
+    topv, topi = top_k(probs, k)
+    topv = topv / topv.sum(dim=-1, keepdim=True)
+    onehot = F.one_hot(topi, n_experts).to(probs.dtype)
+    return torch.einsum("btk,btke->bte", topv, onehot), onehot.sum(dim=2)
+
+
+def _route(probs, k: int, n_experts: int):
+    """`_route_rows`; on a DTensor under `local_map`, each rank routing its
+    own tokens with every expert's probability (DTensor has no rule for
+    the stable sort of `top_k` nor for `one_hot`)."""
+    if not is_dtensor(probs):
+        return _route_rows(probs, k, n_experts)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    last = probs.dim() - 1
+    pl = tuple(Replicate() if q == Shard(last) else q for q in probs.placements)
+    return local_map(lambda pr: _route_rows(pr, k, n_experts),
+                     out_placements=(pl, pl), in_placements=(pl,),
+                     redistribute_inputs=True)(probs)
+
+
+def moe_apply(p, x, cfg: MoeCfg, hidden_sharding=None):
+    """x (B, T, D) -> (out, aux_loss).
+
+    hidden_sharding: optional (DeviceMesh, placements) for the (B, T, E,
+    F) dispatch intermediates, applied to DTensors (JAX pins them for
+    single-token decode, keeping the expert weights 2D-sharded)."""
     logits = x.float() @ p["router"]                      # (B, T, E)
     probs = torch.softmax(logits, dim=-1)
-    topv, topi = top_k(probs, cfg.top_k)
-    topv = topv / topv.sum(dim=-1, keepdim=True)
-    # combine weights (B, T, E): zero except top-k entries
-    onehot = F.one_hot(topi, cfg.n_experts).to(probs.dtype)
-    comb = torch.einsum("btk,btke->bte", topv, onehot)
+    comb, picked = _route(probs, cfg.top_k, cfg.n_experts)
 
     # dense dispatch: every expert sees every token, weighted combine
     h_gate = torch.einsum("btd,edf->btef", x, p["w_gate"])
     h_in = torch.einsum("btd,edf->btef", x, p["w_in"])
+    h_gate, h_in = pin(h_gate, hidden_sharding), pin(h_in, hidden_sharding)
     h = F.silu(h_gate) * h_in
     out = torch.einsum("btef,efd,bte->btd", h, p["w_out"], comb.to(h.dtype))
 
@@ -73,7 +98,7 @@ def moe_apply(p, x, cfg: MoeCfg):
         out = out + hs @ s["w_out"]
 
     # load-balance aux loss (Switch-style): E * sum_e f_e * p_e
-    frac = onehot.sum(dim=2).mean(dim=(0, 1))             # (E,) token fraction
+    frac = picked.mean(dim=(0, 1))                        # (E,) token fraction
     pmean = probs.mean(dim=(0, 1))
     aux = cfg.n_experts * torch.sum(frac * pmean) * cfg.router_aux_coef
     return out.to(x.dtype), aux

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
-from .layers import Draw
+from .layers import Draw, core_placements, is_dtensor, pin
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,12 +74,41 @@ def _token_shift(x, last=None):
     return torch.cat([prev, x[:, :-1]], dim=1)
 
 
+def _wkv_heads(r, k, v, w, u, backend=None):
+    """`ops.wkv6` on the (B, H, T, K) layout: r, k, v, w merged into (B*H,
+    T, K) float32, u (H, K); returns (B, H, T, K) float32."""
+    B, H, T, K = r.shape
+    merge = lambda z: z.reshape(B * H, T, K).float()
+    # K8 takes head bh to u's row bh % H, JAX's (B, H) -> B*H order
+    out = ops.wkv6(merge(r), merge(k), merge(v), merge(w), u, backend=backend)
+    return out.reshape(B, H, T, K)
+
+
+def _local_wkv(placements: tuple, backend):
+    """`_wkv_heads` under `local_map` at ``placements`` (of the (B, H, T,
+    K) heads): each rank runs K8 on its own heads and batch rows.  u's
+    gradient is a partial sum over the mesh dims that split the batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    pl = placements
+    u_pl = tuple(Shard(0) if p == Shard(1) else Replicate() for p in pl)
+    u_grad = tuple(Partial() if p == Shard(0) else q for p, q in zip(pl, u_pl))
+    fn = lambda r, k, v, w, u: _wkv_heads(r, k, v, w, u, backend)
+    return local_map(fn, out_placements=(pl,), in_placements=(pl,) * 4 + (u_pl,),
+                     in_grad_placements=(pl,) * 4 + (u_grad,),
+                     redistribute_inputs=True)
+
+
 def time_mix(p, x, cfg: RwkvCfg, shift_state=None, wkv_state=None,
-             backend=None):
+             backend=None, head_sharding=None):
     """x (B, T, D) -> (out, (new_shift, new_wkv)); states enable decode.
 
     With ``wkv_state`` None (prefill) the recurrence goes through
-    `ops.wkv6` on ``backend`` in float32 and new_wkv is None."""
+    `ops.wkv6` on ``backend`` in float32 and new_wkv is None.  On
+    DTensors the (B, H, T, K) heads are pinned to ``head_sharding``
+    (JAX pins the merged (B*H, T, K) tensors) and the recurrence runs
+    under `local_map` at those placements (`layers.core_placements`),
+    each rank on its own heads and rows."""
     B, T, D = x.shape
     H = cfg.n_heads(D)
     K = cfg.head_dim
@@ -100,14 +129,17 @@ def time_mix(p, x, cfg: RwkvCfg, shift_state=None, wkv_state=None,
     u = p["bonus"].reshape(H, K)
 
     if wkv_state is None:
-        # K8 takes head bh to u's row bh % H, JAX's (B, H) -> B*H order
-        out = ops.wkv6(heads(r), heads(k), heads(v), heads(w.to(x.dtype)), u,
-                       backend=backend)
+        h4 = [pin(z.reshape(B, T, H, K).transpose(1, 2), head_sharding)
+              for z in (r, k, v, w.to(x.dtype))]
+        wkv = (_local_wkv(core_placements(h4[0], head_sharding), backend)
+               if is_dtensor(h4[0]) else
+               lambda *a: _wkv_heads(*a, backend=backend))
+        out = wkv(*h4, u).transpose(1, 2).reshape(B, T, D)
         new_wkv = None
     else:
         out, new_wkv = _wkv_with_state(heads(r), heads(k), heads(v),
                                        heads(w), u, wkv_state)
-    out = out.reshape(B, H, T, K).transpose(1, 2).reshape(B, T, D)
+        out = out.reshape(B, H, T, K).transpose(1, 2).reshape(B, T, D)
     # group-norm-ish scale (float32) then output proj
     out = out * (1.0 + p["ln_x"])
     out = out.to(x.dtype) @ p["w_o"]

@@ -16,6 +16,14 @@ second copy of rwkv6-3b's bfloat16 parameters and float32 moments, ~29 GB,
 does not fit beside the first on an 80 GB card).  The caller's trees then
 change: a runner that keeps its start state to restore from must not run
 such a step with retries.
+
+On a mesh the leaves are DTensors: `init` makes each moment on its
+parameter's placements, `global_norm` is the norm over every shard (each
+leaf's sum of squares reduced over the mesh), and `update` first
+redistributes each gradient to its parameter's placements (autograd may
+return one replicated or as a partial sum) and then updates each rank's
+local shards, which line up element for element; ``inplace`` writes into
+`to_local()`.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Any, NamedTuple
 import torch
 
 from .. import tree
+from ..launch.mesh import is_dtensor
 
 
 class AdamWState(NamedTuple):
@@ -44,8 +53,12 @@ class AdamWConfig:
 
 
 def init(params) -> AdamWState:
-    """Zero moments in float32 beside each leaf, and step 0."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """Zero moments in float32 beside each leaf (on its placements on a
+    mesh), and step 0."""
+    def zeros(p):
+        if is_dtensor(p):
+            return torch.zeros_like(p, dtype=torch.float32)
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     dev = tree.leaves(params)[0].device
     return AdamWState(m=tree.map_leaves(zeros, params),
                       v=tree.map_leaves(zeros, params),
@@ -53,10 +66,13 @@ def init(params) -> AdamWState:
 
 
 def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum over leaves (in leaf order) of sum(g^2), float32."""
+    """sqrt of the sum over leaves (in leaf order) of sum(g^2), float32; a
+    DTensor leaf's sum over all its shards (a plain tensor)."""
     total = None
     for g in tree.leaves(grads):
         sq = torch.sum(torch.square(g.float()))
+        if is_dtensor(sq):
+            sq = sq.full_tensor()
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -90,17 +106,46 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig = AdamWConfig(),
 
     leaves = zip(tree.leaves(grads), tree.leaves(state.m),
                  tree.leaves(state.v), tree.leaves(params))
+    if is_dtensor(tree.leaves(params)[0]):
+        return _update_sharded(leaves, upd, params, state, step, inplace)
     if inplace:
         for g, m, v, p in leaves:
-            rows = max(1, SLICE_ELEMS // max(1, p[0].numel())) if p.dim() else 1
-            parts = ([(g, m, v, p)] if p.dim() == 0 else
-                     zip(*(t.split(rows) for t in (g, m, v, p))))
-            for gs, ms, vs, ps in parts:
-                p1, m1, v1 = upd(gs, ms, vs, ps)
-                ps.copy_(p1)
-                ms.copy_(m1)
-                vs.copy_(v1)
+            _update_inplace(upd, g, m, v, p)
         return params, AdamWState(m=state.m, v=state.v, step=step)
     out = [upd(*a) for a in leaves]
     new = [tree.unflatten(params, [o[i] for o in out]) for i in range(3)]
+    return new[0], AdamWState(m=new[1], v=new[2], step=step)
+
+
+def _update_inplace(upd, g, m, v, p) -> None:
+    """``upd`` written into m, v and p, a slice of the leading axis at a
+    time."""
+    rows = max(1, SLICE_ELEMS // max(1, p[0].numel())) if p.dim() else 1
+    parts = ([(g, m, v, p)] if p.dim() == 0 else
+             zip(*(t.split(rows) for t in (g, m, v, p))))
+    for gs, ms, vs, ps in parts:
+        p1, m1, v1 = upd(gs, ms, vs, ps)
+        ps.copy_(p1)
+        ms.copy_(m1)
+        vs.copy_(v1)
+
+
+def _update_sharded(leaves, upd, params, state: AdamWState, step, inplace):
+    """`update` on DTensor leaves: each gradient redistributed to its
+    parameter's placements, then ``upd`` on the local shards."""
+    from torch.distributed.tensor import DTensor
+    outs = []
+    for g, m, v, p in leaves:
+        g = g.redistribute(p.device_mesh, p.placements)
+        local = [t.to_local() for t in (g, m, v, p)]
+        if inplace:
+            _update_inplace(upd, *local)
+            continue
+        p1, m1, v1 = upd(*local)
+        outs.append([DTensor.from_local(t, p.device_mesh, p.placements,
+                                        shape=p.shape, stride=p.stride())
+                     for t in (p1, m1, v1)])
+    if inplace:
+        return params, AdamWState(m=state.m, v=state.v, step=step)
+    new = [tree.unflatten(params, [o[i] for o in outs]) for i in range(3)]
     return new[0], AdamWState(m=new[1], v=new[2], step=step)

@@ -5,7 +5,9 @@ A node is a dataclass (its fields in declaration order), a NamedTuple (its
 fields), a dict (its keys, sorted) or a list / tuple (its items); ``None``
 is an empty node, as JAX treats it, so an optional field that is off is no
 leaf; anything else is a leaf.  A path is a tuple of steps, each
-``("attr", name)``, ``("key", key)`` or ``("idx", i)``.
+``("attr", name)``, ``("key", key)`` or ``("idx", i)``.  A tuple whose
+class sets ``tree_leaf`` (`models.sharding.PartitionSpec`) is a leaf, as
+JAX's `PartitionSpec` is.
 
 Checkpoint file names (`checkpoint/checkpoint.py`) and the chaos log
 (`runtime/chaos.py`) spell paths as JAX does, so that both frameworks
@@ -29,7 +31,7 @@ def _children(node) -> list:
         return [("attr", n, getattr(node, n)) for n in node._fields]
     if isinstance(node, dict):
         return [("key", k, node[k]) for k in sorted(node)]
-    if isinstance(node, (list, tuple)):
+    if isinstance(node, (list, tuple)) and not getattr(node, "tree_leaf", False):
         return [("idx", i, v) for i, v in enumerate(node)]
     return None
 

@@ -5,7 +5,8 @@ data pipeline, campaign launcher, chaos smoke and timing helper, the
 distributed runtime's partition, halo exchange, ocean, spawn helper and
 ocean cells, the LM configs, models and serving launcher, and the LM
 training path's optimizer, gradient compression, training launcher and
-`train_lm` among them), `chip_smoke.py` (imported, not run) and the
+`train_lm`, and the mesh path's meshes, sharding rules and staged process
+group among them), `chip_smoke.py` (imported, not run) and the
 `obs_smoke` entry point
 are imported in a fresh interpreter in which a
 meta-path finder refuses `jax`, `jaxlib` and `repro`; the test then checks
@@ -34,6 +35,8 @@ LM = ("configs", "configs.base", "configs.archs", "models", "models.layers",
 # training launcher and the end-to-end training script
 TRAIN = ("optim", "optim.adamw", "optim.compression", "launch.train",
          "train_lm")
+# the LM mesh path: the meshes, the sharding rules and the ranks' group
+MESH = ("launch.mesh", "models.sharding", "distributed.staged")
 
 SCRIPT = textwrap.dedent(r"""
     import importlib, importlib.util, pkgutil, sys
@@ -75,7 +78,7 @@ def test_port_imports_no_jax_and_no_repro():
     n, names = int(lines[-1]), set(lines[-2].split())
     # every module of the package, obs and obs_smoke included
     assert n >= 35, res.stdout
-    assert names >= {f"repro_torch.{m}" for m in RUNTIME + LM + TRAIN}, \
+    assert names >= {f"repro_torch.{m}" for m in RUNTIME + LM + TRAIN + MESH}, \
         res.stdout
 
 

@@ -152,8 +152,20 @@ def test_decode_attention(case):
 
 
 def test_attn_cfg_refuses_head_padding():
-    with pytest.raises(ValueError, match="pad_heads_to"):
-        layers.AttnCfg(n_heads=24, n_kv=2, head_dim=16, pad_heads_to=32)
+    """The port once refused `pad_heads_to`; it now pads as JAX does: 3
+    heads padded to 4 against JAX's padded attention, and the padding
+    changes no number beyond float32 sums."""
+    kw = dict(n_heads=3, n_kv=1, head_dim=16, rope_theta=1e4)
+    jcfg = jl.AttnCfg(pad_heads_to=4, **kw)
+    jp = jl.attn_params(jax.random.PRNGKey(0), 48, jcfg, jnp.float32)
+    x = _normal(_rng(2), 2, 32, 48)
+    ref = jl.attention(jp, jnp.asarray(x), jcfg, jnp.arange(32))
+    outs = [layers.attention(_params(jp), torch.from_numpy(x),
+                             layers.AttnCfg(pad_heads_to=pad, **kw),
+                             torch.arange(32), backend="plain")
+            for pad in (4, None)]
+    _close(outs[0], ref)
+    _close(outs[0], outs[1].detach().numpy())
 
 
 @pytest.mark.parametrize("act", ["swiglu", "gelu"])

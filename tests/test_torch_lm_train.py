@@ -506,8 +506,9 @@ def test_launch_train_main(tmp_path):
                           "--ckpt", str(tmp_path / "c"), "--ckpt-every", "2"])
     assert len(losses) == 4 and np.isfinite(losses).all()
     assert (tmp_path / "c" / "step_000000004").is_dir()
-    with pytest.raises(SystemExit, match="--mesh"):
-        ttrain.main(["--mesh", "2x4", "--device", "cpu"])
+    # --mesh is no longer refused: it runs on spawned ranks
+    # (tests/test_torch_lm_mesh.py::test_launch_train_mesh_main)
+    assert ttrain.parse_mesh("2x4") == (2, 4)
 
 
 def test_train_lm_main(tmp_path):
