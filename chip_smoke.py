@@ -9,6 +9,7 @@
     python3 chip_smoke.py --serve-only            # the build and phase 9
     python3 chip_smoke.py --train-only            # the build and phase 10
     python3 chip_smoke.py --mesh-only             # the build and phase 11
+    python3 chip_smoke.py --dryrun-only           # the build and phase 12
 
 With --k7-only, K7 through the default call of the repro_torch found in
 DIR (an earlier checkout's, to time two kernels in one run), by the three
@@ -18,7 +19,8 @@ with --campaign-only, the build and phase 7 (phase 4's bare step is not
 run, so the runner's overhead over it is not printed); with
 --distributed-only, the build and phase 8; with --serve-only, the build
 and phase 9; with --train-only, the build and phase 10; with --mesh-only,
-the build and phase 11.  Each prints its
+the build and phase 11; with --dryrun-only, the build and phase 12.  Each
+prints its
 lines, a JSON line and the card's name and power limit.
 Phases of the run with no arguments:
 
@@ -184,7 +186,7 @@ Phases of the run with no arguments:
                 single-device ref step; every rank's tensors on the card,
                 its cuda launches PER_STEP a step (equal to the registry's
                 kernel_dispatch counts), and halo.ppermute a step equal to
-                the closed form of tests/torch_dist_ranks.py.  Prints per
+                the closed form of distributed/halo.py.  Prints per
                 rank n_own, n_loc, halo slots, offsets, exchanges and bytes
                 a step, step times and peak memory; ms a step of steps 2-3
                 (the slowest rank's, between barriers) beside the
@@ -254,12 +256,42 @@ Phases of the run with no arguments:
                 the step times between barriers, the staged collectives and
                 their bytes a step, peak memory; ms a step on the slowest
                 rank, tokens/s, and the card's name and power limit.  The
-                ranks time-share one card: not a scaling figure.
+                ranks time-share one card: not a scaling figure;
+ 12. dry run  — the ocean dry run (`launch/ocean_dryrun.trace_ocean`):
+                rank 0 of the `benchmark` and `benchmark-ca2` cells traced
+                on fake groups of the two production meshes, (16, 16) = 256
+                and (2, 16, 16) = 512 ranks, on the card through the CUDA
+                kernels, and `benchmark` at 256 ranks once more on the CPU
+                (plain); each record must hold: its exchanges and bytes a
+                step equal to the closed forms of distributed/halo.py, the
+                five step kernels' launches a step equal to PER_STEP (the
+                CUDA wrappers' own counts on the card), and n_own / n_loc
+                equal to DRYRUN_SIZES; the card's `hlo.bytes` and
+                `hlo.flops` of `benchmark` at 256 ranks must equal the
+                CPU's.  Every kernel call of each card trace's warm-up
+                step (f32, nl 32, n_loc 913 / 1,399 / 493 / 881 columns)
+                is run again, not counted, on its own operands
+                and with its data replaced by seeded normals (DRYRUN_FREE):
+                K7 bitwise equal to plain, K3 within TOL in backward error
+                (`block_residual`), K1, K2, K4 against plain as `held` on
+                their own operands, within TOL of max |plain| on seeded
+                ones (`hold_ocean_calls`); the card's state after the
+                counted step of `benchmark` at 256 ranks must be finite,
+                and its distance to the CPU's is printed beside the CPU's
+                own between the plain and ref backends (in f32, with the
+                exchanges faked, the state does not reproduce across
+                summation orders, so it is not held to a tolerance).
+                Prints each record's roofline summary (on the H100
+                model), its memory and traffic, and the rank step's ms over
+                DRYRUN_TIMED steps on the card with the exchanges faked
+                ("one rank, no communication": not a scaling figure)
+                beside its roofline memory_s and its count of eager ops.
 
 The line before the last is the card's `nvidia-smi` name and power limit;
 the line before that is the JSON kernel table (K8's and K9's `launches`
 are one training step's of phase 10, their prefills' under
-`launches_serve`, phase 11's ranks' under `launches_mesh`); the last line
+`launches_serve`, phase 11's ranks' under `launches_mesh`, phase 12's
+traced steps' under `launches_dryrun`); the last line
 is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -279,10 +311,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_FLOPS = {torch.float32: 67e12,  # H100 SXM vector peaks, no tensor cores
-              torch.float64: 34e12,  # (NVIDIA data sheet); bf16: dense
-              torch.bfloat16: 989e12}  # tensor-core peak
 # cycles of the sleep kernel that primes an event timing: ~10 ms at the
 # H100's 1,980 MHz, longer than the host takes to enqueue 20 calls
 PRIME_CYCLES = 20_000_000
@@ -657,19 +685,29 @@ def held(out, ref, dtype, what: str) -> tuple:
     return err, scale
 
 
+def h100():
+    """The H100 SXM machine model (`repro_torch.roofline.analysis`): the
+    HBM rate and the peaks by dtype behind every bound here and the dry
+    run's roofline."""
+    from repro_torch.roofline.analysis import H100_SXM
+    return H100_SXM
+
+
 def bound_of(moved: int, flops: int, dtype) -> tuple:
     """(the least ms the card could take, "bytes" or "operations")."""
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = moved / h100().hbm_bytes_per_s * 1e3
+    t_ops = flops / h100().peak(dtype) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def kernel_cases(nt: int, nl: int, seed: int):
     """One dict per case: name, label, kernel fn, plain fn, inputs builder
-    (dtype -> the inputs on the card), flops; `exact` cases must equal their
-    plain version bitwise; `library` is one PyTorch call computing the same
-    function, timed as a yardstick, or None."""
+    (dtype -> the inputs on the card), cost (the inputs -> the bytes and
+    operations of `repro_torch.roofline.kernels`); `exact` cases must equal
+    their plain version bitwise; `library` is one PyTorch call computing
+    the same function, timed as a yardstick, or None."""
     from repro_torch.kernels import cell_transpose, horizontal_flux, matrix_free
+    from repro_torch.roofline import kernels as rk
     rng = np.random.default_rng(seed)
     r = lambda *s: rng.standard_normal(s, dtype=np.float32)
     F2, bc2 = r(2, nl, 6, nt), r(2, 3, nt)
@@ -694,52 +732,56 @@ def kernel_cases(nt: int, nl: int, seed: int):
         t.copy_(torch.as_tensor(a))
         return [t]
 
-    def case(name, label, kern, plain, inputs, flops, exact=False,
+    def case(name, label, kern, plain, inputs, cost, exact=False,
              library=None, variant=None):
         return dict(name=name, label=label, kern=kern, plain=plain,
-                    inputs=inputs, flops=flops, exact=exact, library=library,
+                    inputs=inputs, cost=cost, exact=exact, library=library,
                     variant=variant)
 
     to_cells = lambda x: x.view(nl * 6, nc, 128).transpose(0, 1).contiguous()
     to_soa = lambda c: c.transpose(0, 1).contiguous()
+    k5 = lambda ins: rk.soa_to_cell(*ins)
+    k6 = lambda n: lambda ins: rk.cell_to_soa(*ins, n)
 
     return [
         case("solve_r", "K=2", matrix_free.solve_r, matrix_free.solve_r_plain,
-             lambda d: on(d, F2, area, bc2), 2 * nt * (nl * 34 + 1)),
+             lambda d: on(d, F2, area, bc2), lambda ins: rk.solve_r(*ins)),
         case("solve_w", "K=1", lambda F, a: matrix_free.solve_w(F, a),
              lambda F, a: matrix_free.solve_w_plain(F, a),
-             lambda d: on(d, F1, area), 1 * nt * (nl * 34 + 1)),
+             lambda d: on(d, F1, area), lambda ins: rk.solve_w(*ins)),
         case("lateral_flux", "k=2", horizontal_flux.lateral_flux,
              horizontal_flux.lateral_flux_plain,
-             lambda d: on(d, f4[:2], fext4[:2], speed, elen), 2 * nl * nt * 300),
+             lambda d: on(d, f4[:2], fext4[:2], speed, elen),
+             lambda ins: rk.lateral_flux(*ins)),
         case("lateral_flux", "k=4", horizontal_flux.lateral_flux,
              horizontal_flux.lateral_flux_plain,
-             lambda d: on(d, f4, fext4, speed, elen), 4 * nl * nt * 300),
+             lambda d: on(d, f4, fext4, speed, elen),
+             lambda ins: rk.lateral_flux(*ins)),
         case("soa_to_cell", f"nt={nt}", cell_transpose.soa_to_cell,
-             cell_transpose.soa_to_cell_plain, lambda d: on(d, field), 0,
+             cell_transpose.soa_to_cell_plain, lambda d: on(d, field), k5,
              exact=True, library=to_cells, variant="vector"),
         case("soa_to_cell", f"nt={rag}", cell_transpose.soa_to_cell,
              cell_transpose.soa_to_cell_plain,
-             lambda d: on(d, field[..., :rag]), 0, exact=True,
+             lambda d: on(d, field[..., :rag]), k5, exact=True,
              variant="scalar"),
         case("soa_to_cell", f"nt={nt} unaligned", cell_transpose.soa_to_cell,
              cell_transpose.soa_to_cell_plain,
-             lambda d: unaligned(d, field), 0, exact=True, library=to_cells,
+             lambda d: unaligned(d, field), k5, exact=True, library=to_cells,
              variant="scalar"),
         case("cell_to_soa", f"nt={nt}",
              lambda c: cell_transpose.cell_to_soa(c, nt),
              lambda c: cell_transpose.cell_to_soa_plain(c, nt),
-             lambda d: on(d, cells), 0, exact=True, library=to_soa,
+             lambda d: on(d, cells), k6(nt), exact=True, library=to_soa,
              variant="vector"),
         case("cell_to_soa", f"nt={rag}",
              lambda c: cell_transpose.cell_to_soa(c, rag),
              lambda c: cell_transpose.cell_to_soa_plain(c, rag),
-             lambda d: on(d, cells[:-(-rag // 128)]), 0, exact=True,
+             lambda d: on(d, cells[:-(-rag // 128)]), k6(rag), exact=True,
              variant="scalar"),
         case("cell_to_soa", f"nt={nt} unaligned",
              lambda c: cell_transpose.cell_to_soa(c, nt),
              lambda c: cell_transpose.cell_to_soa_plain(c, nt),
-             lambda d: unaligned(d, cells), 0, exact=True, library=to_soa,
+             lambda d: unaligned(d, cells), k6(nt), exact=True, library=to_soa,
              variant="scalar"),
     ]
 
@@ -771,14 +813,6 @@ def copy_plan(name: str, ins, out) -> dict:
     return cell_transpose.launch_plan(soa.shape[0] * 6, soa.shape[2],
                                       soa.dtype, ins[0].data_ptr(),
                                       out.data_ptr())
-
-
-def moved_bytes(name: str, ins, out) -> int:
-    """Bytes the function must move: each input read once, each output
-    written once.  K6 reads only the nt live columns of its cells."""
-    if name == "cell_to_soa":
-        return 2 * nbytes(out)
-    return nbytes(*ins, out)
 
 
 def host_us(fn, reps: int = 20) -> float:
@@ -851,8 +885,8 @@ def phase_kernels(nt: int, nl: int, seed: int) -> dict:
                              library_primed_ms=lib_primed,
                              library_graph_ms=lib_graph,
                              host_us=host_us(lambda: kern(*ins)))
-            moved = moved_bytes(name, ins, out)
-            bound, by = bound_of(moved, c["flops"], dtype)
+            moved, flops = c["cost"](ins)
+            bound, by = bound_of(moved, flops, dtype)
             dt = "f32" if dtype == torch.float32 else "f64"
             lib_txt = "" if library_ms is None else f" library_ms={library_ms:.4f}"
             if extra is not None:
@@ -876,11 +910,11 @@ def phase_kernels(nt: int, nl: int, seed: int) -> dict:
             log(f"kernel {name} {label} {dt}: shape={tuple(ins[0].shape)} "
                 f"max_abs_err={err:.3e} ({tol_txt}) "
                 f"ms={ms:.4f} plain_ms={plain_ms:.3f}{lib_txt} bytes={moved} "
-                f"flops={c['flops']} bound_ms={bound:.4f} ({by}) "
+                f"flops={flops} bound_ms={bound:.4f} ({by}) "
                 f"share_of_bound={bound / ms:.3f}")
             results[(name, label, dt)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound, bound_by=by, bytes=moved, flops=c["flops"], shape=list(ins[0].shape),
+                bound_ms=bound, bound_by=by, bytes=moved, flops=flops, shape=list(ins[0].shape),
                 **(extra or {}))
             del ins, out, ref
     torch.cuda.empty_cache()
@@ -907,19 +941,6 @@ def thomas_inputs(nl: int, k: int, nt: int, seed: int, dtype) -> list:
     return [lo, dg, up, r(k, nl, 6, nt)]
 
 
-def thomas_bytes(lo, dg, up, rhs, x) -> int:
-    """K3's compulsory bytes: the blocks the solve uses (lo but its first
-    layer, dg, up but its last layer) and rhs read once, x written once."""
-    return nbytes(lo[1:], dg, up[:-1], rhs, x)
-
-
-def thomas_flops(nl: int, k: int, nt: int) -> int:
-    """Operations of the elimination: S_l and the right-hand side, six
-    Gauss-Jordan steps, and the backward sweep."""
-    per_layer = 36 * 13 + 6 * k * 13 + 6 * (133 + 11 * k)
-    return nt * (nl * per_layer + (nl - 1) * 6 * k * 13)
-
-
 def thomas_scratch_bytes(plan, nl: int, k: int, itemsize: int) -> int:
     """Bytes the global variant moves through its scratch beyond the
     compulsory ones if L2 keeps none of it: forward, [C_l | y_l] written and
@@ -938,6 +959,7 @@ def phase_block_thomas(nt: int, nl: int, seed: int, ptxas: dict) -> dict:
     reverse order; then the shallowest depth the plan sends to the global
     variant, at the same nt, held and timed."""
     from repro_torch.kernels import column_solve as cs
+    from repro_torch.roofline import kernels as rk
     results = {}
     for dtype in (torch.float32, torch.float64):
         dt = "f32" if dtype == torch.float32 else "f64"
@@ -969,7 +991,7 @@ def phase_block_thomas(nt: int, nl: int, seed: int, ptxas: dict) -> dict:
             for label in order:
                 times[label].append(time_ms(runs[label][1], reps=20))
         plain_ms = time_ms(lambda: cs.block_thomas_plain(*ins), reps=3, warmup=1)
-        moved, flops = thomas_bytes(*ins, ref), thomas_flops(nl, K3_K, nt)
+        moved, flops = rk.block_thomas(*ins)
         bound, by = bound_of(moved, flops, dtype)
         tiles = {}
         for label, (p, _) in runs.items():
@@ -985,7 +1007,7 @@ def phase_block_thomas(nt: int, nl: int, seed: int, ptxas: dict) -> dict:
                                 max_abs_err=errs[label], scratch_bytes=scratch)
             extra = (f" scratch bytes moved {scratch} (if none stays in L2; "
                      f"{moved + scratch} in all, bound at that traffic "
-                     f"{(moved + scratch) / HBM_BYTES_PER_S * 1e3:.4f} ms)"
+                     f"{(moved + scratch) / h100().hbm_bytes_per_s * 1e3:.4f} ms)"
                      if scratch else "")
             log(f"kernel block_thomas k={K3_K} {dt} {label}: shape="
                 f"{tuple(ins[0].shape)} smem={p['smem']} grid={p['grid']} "
@@ -1014,8 +1036,8 @@ def phase_block_thomas(nt: int, nl: int, seed: int, ptxas: dict) -> dict:
         del dref
         dms = time_ms(lambda: cs.block_thomas(*dins), reps=20)
         dplain = time_ms(lambda: cs.block_thomas_plain(*dins), reps=1, warmup=1)
-        dmoved = thomas_bytes(*dins, out)
-        dbound, dby = bound_of(dmoved, thomas_flops(deep_nl, K3_K, nt), dtype)
+        dmoved, dflops = rk.block_thomas(*dins)
+        dbound, dby = bound_of(dmoved, dflops, dtype)
         dscratch = thomas_scratch_bytes(deep_plan, deep_nl, K3_K, dtype.itemsize)
         deep = dict(nl=deep_nl, nt=nt, variant=deep_plan["variant"],
                     tc=deep_plan["tc"], smem=deep_plan["smem"], ms=dms,
@@ -1132,9 +1154,10 @@ def tridiag_cases(nt: int, nl: int, seed: int, dtype) -> dict:
 
 
 def tridiag_bound(ins) -> tuple:
-    """(bytes, flops, bound ms, bound_by) of a K7 solve of ``ins``: each
-    operand read once, x written once; 8 flops a layer and column."""
-    moved, flops = nbytes(*ins, ins[0]), 8 * ins[0].numel()
+    """(bytes, flops, bound ms, bound_by) of a K7 solve of ``ins``
+    (`repro_torch.roofline.kernels.tridiag`)."""
+    from repro_torch.roofline import kernels as rk
+    moved, flops = rk.tridiag(*ins)
     return (moved, flops, *bound_of(moved, flops, ins[0].dtype))
 
 
@@ -1828,10 +1851,8 @@ def phase_model(ptxas: dict) -> dict:
                 library_ms = time_ms(lambda: library(*ins), reps=20)
             moved = nbytes(*ins, out)
             # K8's state is float32 whatever the inputs' dtype
-            peak = PEAK_FLOPS[torch.float32 if kname == "wkv6" else dtype]
-            t_bytes = moved / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / peak * 1e3
-            bound = max(t_bytes, t_ops)
+            bound, by = bound_of(moved, flops,
+                                 torch.float32 if kname == "wkv6" else dtype)
             regs = ptxas.get(var.format(dt), {})
             lib_txt = ("" if library_ms is None else
                        f" library_ms={library_ms:.4f} (vs kernel {lib_err:.3e}, "
@@ -1847,8 +1868,8 @@ def phase_model(ptxas: dict) -> dict:
                             f"{before / ms:.2f}x)")
             if kname == "wkv6":
                 before = K8_BEFORE_MS[(cname, dt)]
-                bound7 = max(t_bytes, wkv6_flops_unfactored(case)
-                             / peak * 1e3)
+                bound7, _ = bound_of(moved, wkv6_flops_unfactored(case),
+                                     torch.float32)
                 lib_txt += (f" before_ms={before:.4f} (column-a-thread kernel; "
                             f"{before / ms:.2f}x; share of this bound "
                             f"{bound / before:.4f}) bound_ms_7flop="
@@ -1867,14 +1888,12 @@ def phase_model(ptxas: dict) -> dict:
                 f"{'per row' if dtype == torch.bfloat16 else 'x max(|plain|, 1)'}) "
                 f"ms={ms:.4f} plain_ms={plain_ms:.3f}{lib_txt} bytes={moved} "
                 f"flops={flops} bound_ms={bound:.4f} "
-                f"({'bytes' if t_bytes >= t_ops else 'operations'}) "
-                f"share_of_bound={bound / ms:.4f} ptxas {var.format(dt)} {regs}")
+                f"({by}) share_of_bound={bound / ms:.4f} ptxas {var.format(dt)} {regs}")
             results[(cname, dt)] = dict(
                 kernel=kname, max_abs_err=err, limit_share=share, ms=ms,
                 plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound, sfu_floor_ms=sfu_ms,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=moved, flops=flops, shape=list(ins[0].shape),
+                bound_by=by, bytes=moved, flops=flops, shape=list(ins[0].shape),
                 ptxas=regs,
                 alternatives={n: {k: a[k] for k in ("ms_1", "ms_2",
                                                     "max_abs_err", "ptxas",
@@ -2300,9 +2319,8 @@ def phase_distributed() -> dict:
     from repro_torch.checkpoint.checkpoint import Checkpointer
     from repro_torch.core import stepper
     from repro_torch.distributed import spawn
-    sys.path.insert(0, str(ROOT / "tests"))
     # the closed form the CPU tests hold the halo counts to
-    from torch_dist_ranks import shifts_per_step
+    from repro_torch.distributed.halo import shifts_per_step
 
     geom, vg, cfg0, st0 = quickstart.setup(nx=NX, nl=NL, dtype=torch.float64,
                                            device="cuda")
@@ -3508,6 +3526,257 @@ def phase_mesh(configs: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the ocean dry run on fake groups of the production meshes
+# ---------------------------------------------------------------------------
+DRYRUN_CELLS = ("benchmark", "benchmark-ca2")
+# rank 0's n_own and n_loc by (cell, ranks): the port's build_partition at
+# the halo depth DistributedOcean gives each cell, max(1, 3 * period)
+DRYRUN_SIZES = {("benchmark", 256): (820, 913), ("benchmark", 512): (410, 493),
+                ("benchmark-ca2", 256): (820, 1399),
+                ("benchmark-ca2", 512): (410, 881)}
+DRYRUN_TIMED = 3            # timed rank steps after the counted one
+# the ops of the step's kernels, and the positions of their data operands
+# (the rest is the geometry or the system's matrix): phase 12 holds each
+# call also with these replaced by seeded normals, since the cells start at
+# rest, where much of what the kernels get is zero or uniform
+DRYRUN_FREE = {"solve_r": (1, 2), "solve_w": (1, 2), "block_thomas": (1,),
+               "lateral_flux_term": (1, 2, 3), "tridiag": (3,)}
+
+
+@contextlib.contextmanager
+def tapped_ocean_ops(calls: list, limit: int):
+    """While active, the first ``limit`` calls of the step's kernel ops
+    (`ops.<op>` of DRYRUN_FREE, which the step calls through the module)
+    append (op, args, kwargs) to ``calls``; nothing is copied or launched,
+    so a traced step counts the same."""
+    from repro_torch.kernels import ops
+    orig = {name: getattr(ops, name) for name in DRYRUN_FREE}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            if len(calls) < limit:
+                calls.append((name, args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+    try:
+        for name, fn in orig.items():
+            setattr(ops, name, wrap(name, fn))
+        yield
+    finally:
+        for name, fn in orig.items():
+            setattr(ops, name, fn)
+
+
+def block_residual(lo, dg, up, rhs, x) -> float:
+    """The componentwise backward error of ``x`` as a solution of the
+    block-tridiagonal system (lo, dg, up) x = rhs, in the kernel's layout
+    (blocks (nl, 6, 6, nt), rhs and x (k, nl, 6, nt); lo[0], up[-1] unread):
+    max |A x - rhs| / (|A| |x| + |rhs|), in float64.  A backward-stable
+    solve keeps it near the dtype's rounding unit however ill-conditioned
+    A is, where its distance to another solver's result grows with A's
+    condition number."""
+    lo, dg, up, rhs, x = (t.double() for t in (lo, dg, up, rhs, x))
+
+    def apply(lo, dg, up, x):
+        ax = torch.einsum("limc,klmc->klic", dg, x)
+        ax[:, 1:] += torch.einsum("limc,klmc->klic", lo[1:], x[:, :-1])
+        ax[:, :-1] += torch.einsum("limc,klmc->klic", up[:-1], x[:, 1:])
+        return ax
+    r = (apply(lo, dg, up, x) - rhs).abs()
+    scale = apply(lo.abs(), dg.abs(), up.abs(), x.abs()) + rhs.abs()
+    return float((r / scale.clamp_min(torch.finfo(torch.float64).tiny)).max())
+
+
+def hold_ocean_calls(calls: list, what: str, gen) -> dict:
+    """Each recorded call once more through the kernel and the plain
+    version (not counted), on its own operands and then with its
+    DRYRUN_FREE operands replaced by seeded normals.  K7 must equal plain
+    bitwise; K3, a solver, must keep its backward error (`block_residual`)
+    within TOL, and its distances to plain and to the float64 solution
+    are printed; K1, K2 and K4 are held to plain, on their own operands
+    as phase 3 holds them (`held`), on seeded ones within TOL of max
+    |plain| (their results can be far below 1).  Returns {op: the worst
+    of each reading}."""
+    from repro_torch.kernels import ops
+    worst = {}
+    for i, (name, args, kwargs) in enumerate(calls):
+        kw = {k: v for k, v in kwargs.items() if k != "backend"}
+        fn = getattr(ops, name)
+        seeded = list(args)
+        for j in DRYRUN_FREE[name]:
+            if j < len(seeded) and isinstance(seeded[j], torch.Tensor):
+                x = seeded[j]
+                seeded[j] = torch.randn(x.shape, generator=gen, dtype=x.dtype,
+                                        device=x.device)
+        row = worst.setdefault(name, {"calls": 0})
+        row["calls"] += 1
+        for k, a in enumerate((args, seeded)):
+            out = fn(*a, backend="cuda", **kw)
+            ref = fn(*a, backend="plain", **kw)
+            torch.cuda.synchronize()
+            on = ("own", "seeded")[k]
+            tag = f"{what}: {name} call {i} on {on} operands"
+            err = float((out - ref).abs().max())
+            read = {f"err_{on}": err}
+            if name == "tridiag":
+                if not torch.equal(out, ref):
+                    raise AssertionError(f"{tag}: not bitwise equal to plain "
+                                         f"(max_abs_err {err:.3e})")
+            elif name == "block_thomas":
+                blocks, rhs = a
+                x64 = fn(tuple(b.double() for b in blocks), rhs.double(),
+                         backend="plain")
+                top = float(x64.abs().max()) or 1.0
+                read.update({
+                    f"backward_{on}": block_residual(*blocks, rhs, out),
+                    f"backward_plain_{on}": block_residual(*blocks, rhs, ref),
+                    f"vs_f64_{on}": float((out.double() - x64).abs().max()) / top,
+                    f"vs_f64_plain_{on}": float((ref.double() - x64).abs().max())
+                    / top})
+                if not read[f"backward_{on}"] <= TOL[out.dtype]:
+                    raise AssertionError(
+                        f"{tag}: backward error {read[f'backward_{on}']:.3e} > "
+                        f"{TOL[out.dtype]:.0e} (plain's "
+                        f"{read[f'backward_plain_{on}']:.3e}; max_abs_err "
+                        f"against plain {err:.3e})")
+            elif k == 0:
+                held(out, ref, out.dtype, tag)
+            else:
+                scale = float(ref.abs().max())
+                if not err <= TOL[out.dtype] * scale:
+                    raise AssertionError(f"{tag}: max_abs_err {err:.3e} > "
+                                         f"{TOL[out.dtype]:.0e} * {scale:.3e}")
+                read[f"err_{on}"] = err / scale
+            for key, v in read.items():
+                row[key] = max(row.get(key, 0.0), v)
+    return worst
+
+
+def dryrun_checks(rec: dict) -> dict:
+    """{check: passed} of one dry-run record (see phase 12)."""
+    from repro_torch.distributed import halo
+    from repro_torch.launch.ocean_dryrun import OCEAN_CELLS
+    cell = OCEAN_CELLS[rec["arch"][len("ocean-"):]]
+    part, hlo = rec["partition"], rec["hlo"]
+    period = cell.halo_exchange_period
+    shifts = halo.shifts_per_step(len(part["offsets"]), period, cell.m_2d)
+    moved = halo.bytes_per_step(part["msg"], period, cell.nl, 4, cell.m_2d)
+    sizes = DRYRUN_SIZES[(cell.name, rec["chips"])]
+    return {
+        f"exchanges {shifts} a step": hlo["n_collectives"] == shifts,
+        f"halo bytes {moved} a step": hlo["coll_bytes"] == moved,
+        f"launches {PER_STEP}": {k: v["launches"] for k, v in
+                                 rec["kernels"].items()} == PER_STEP,
+        f"n_own, n_loc {sizes}": (part["n_own"], part["n_loc"]) == sizes}
+
+
+def phase_dryrun() -> dict:
+    """Phase 12: the ocean dry run on the card and, for one record, on the
+    CPU; every record held by `dryrun_checks`, every kernel call of the
+    card's traced steps by `hold_ocean_calls`, the card's bytes and flops
+    against the CPU's; the card's state finite, its distance to the CPU's
+    printed beside the CPU's own across backends."""
+    from repro_torch import tree as T
+    from repro_torch.launch import dryrun, ocean_dryrun
+    from repro_torch.launch.mesh import production_spec
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    recs, states, holds = {}, {}, {}
+    for multi in (False, True):
+        spec = production_spec(multi_pod=multi)
+        for name in DRYRUN_CELLS:
+            key, calls = (name, spec.size, "cuda"), []
+            # the warm-up step's calls: their operands, kept until the
+            # holds, are part of the allocation the counted step starts
+            # from, so the record's peak does not count them
+            with tapped_ocean_ops(calls, sum(PER_STEP.values())):
+                recs[key], states[key] = ocean_dryrun.trace_ocean(
+                    name, spec, device="cuda", time_steps=DRYRUN_TIMED,
+                    return_state=True)
+            holds[key] = hold_ocean_calls(calls, f"dryrun {name}@{spec.size}",
+                                          gen)
+            shown = {op: {k: float(f"{v:.3g}") for k, v in r.items()}
+                     for op, r in holds[key].items()}
+            log(f"dryrun {name}@{spec.size}:cuda: {len(calls)} kernel calls "
+                f"held (K1, K2, K4's err_seeded over max|plain|; K3's "
+                f"backward errors, and its distances to the f64 solution "
+                f"over its max): {shown}")
+            del calls
+    key = ("benchmark", 256, "cpu")
+    recs[key], states[key] = ocean_dryrun.trace_ocean(
+        "benchmark", production_spec(), device="cpu", return_state=True)
+    _, ref_state = ocean_dryrun.trace_ocean(
+        "benchmark", production_spec(), device="cpu", backend="ref",
+        return_state=True)
+    state_diffs = {}
+    for (path, a), b, c in zip(
+            T.flatten_with_path(states[("benchmark", 256, "cuda")]),
+            T.leaves(states[key]), T.leaves(ref_state)):
+        leaf = T.keystr(path)
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"dryrun benchmark@256: {leaf} non-finite "
+                                 f"on the card")
+        scale = max(float(b.abs().max()), 1.0)
+        state_diffs[leaf] = [float((a.cpu() - b).abs().max()) / scale,
+                             float((b - c).abs().max()) / scale]
+    shown = {k: [float(f"{v:.3e}") for v in d] for k, d in state_diffs.items()}
+    log(f"dryrun benchmark@256: state after the counted step, finite on the "
+        f"card; [cuda vs cpu, cpu plain vs cpu ref] over max(|cpu|, 1), "
+        f"printed, not held (f32 with faked exchanges does not reproduce "
+        f"across summation orders; the kernels are held call by call): "
+        f"{shown}")
+    del states, ref_state
+    failures, res = [], {"state_vs_cpu": state_diffs}
+    for (name, ranks, dev), rec in recs.items():
+        key = f"{name}@{ranks}:{dev}"
+        checks = dryrun_checks(rec)
+        failures += [f"{key}: {c}" for c, ok in checks.items() if not ok]
+        r, mem, hlo = rec["roofline"], rec["memory"], rec["hlo"]
+        log(f"dryrun {key}{dryrun.summary(rec)}")
+        log(f"dryrun {key}: n_own {rec['partition']['n_own']}, n_loc "
+            f"{rec['partition']['n_loc']}, {len(rec['partition']['offsets'])} "
+            f"ring offsets; peak {mem['peak_per_device']} B, arguments "
+            f"{mem['argument_bytes']} B; hlo.bytes {hlo['bytes']:.0f}, "
+            f"hlo.flops {hlo['flops']:.0f}, coll_bytes {hlo['coll_bytes']:.0f}, "
+            f"n_collectives {hlo['n_collectives']}; compute_s "
+            f"{r['compute_s']:.6g}, memory_s {r['memory_s']:.6g}, "
+            f"collective_s {r['collective_s']:.6g} (latency "
+            f"{r['coll_latency_s']:.6g}), dominant {r['dominant']}; "
+            f"launches { {k: v['launches'] for k, v in rec['kernels'].items()} }; "
+            f"{rec['n_ops']} eager ops; checks "
+            f"{'all held' if all(checks.values()) else checks}")
+        if "step_ms" in rec:
+            ms = rec["step_ms"]
+            log(f"dryrun {key}: one rank, no communication (exchanges faked, "
+                f"not a scaling figure): {[round(t, 3) for t in ms]} ms a "
+                f"step, mean {np.mean(ms):.3f}, against roofline memory_s "
+                f"{r['memory_s'] * 1e3:.4f} ms, {rec['n_ops']} eager ops a "
+                f"step; card {rec.get('card')}")
+        res[key] = {k: rec[k] for k in (
+            "partition", "n_ops", "kernels", "hlo", "roofline", "trace_s",
+            "build_s", "device")} | {
+            "memory": {k: v for k, v in rec["memory"].items()
+                       if k != "arguments"},
+            "step_ms": rec.get("step_ms"), "card": rec.get("card"),
+            "held_calls": holds.get((name, ranks, dev))}
+    card, cpu = recs[("benchmark", 256, "cuda")], recs[("benchmark", 256, "cpu")]
+    for f in ("bytes", "flops"):
+        if card["hlo"][f] != cpu["hlo"][f]:
+            failures.append(f"benchmark@256 hlo.{f}: cuda {card['hlo'][f]} "
+                            f"against cpu {cpu['hlo'][f]}")
+    log(f"dryrun: phase 12 in {time.perf_counter() - t0:.1f} s; cuda and cpu "
+        f"hlo.bytes {card['hlo']['bytes']:.0f} / {cpu['hlo']['bytes']:.0f}, "
+        f"hlo.flops {card['hlo']['flops']:.0f} / {cpu['hlo']['flops']:.0f}; "
+        f"nvidia-smi: {nvidia_smi()}")
+    if failures:
+        raise AssertionError(f"dryrun: {failures}")
+    res["launches"] = {k: sum(rec["kernels"][k]["launches"]
+                              for (_, _, dev), rec in recs.items()
+                              if dev == "cuda") for k in PER_STEP}
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k7-only", action="store_true",
@@ -3524,6 +3793,8 @@ def main(argv=None) -> int:
                     help="only build and run phase 10 (phase_training)")
     ap.add_argument("--mesh-only", action="store_true",
                     help="only build and run phase 11 (phase_mesh)")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="only build and run phase 12 (phase_dryrun)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory holding repro_torch (default: ./src)")
     args = ap.parse_args(argv)
@@ -3583,6 +3854,13 @@ def main(argv=None) -> int:
         mesh_res = phase_mesh(train_configs())
         log(f"mesh: phase 11 in {time.perf_counter() - t0:.1f} s")
         print(json.dumps({"mesh": mesh_res}))
+        print(nvidia_smi())
+        return 0
+
+    if args.dryrun_only:
+        log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}")
+        cuda_lib.build()
+        print(json.dumps({"dryrun": phase_dryrun()}))
         print(nvidia_smi())
         return 0
 
@@ -3655,6 +3933,11 @@ def main(argv=None) -> int:
     log(f"mesh: phase 11 in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"mesh": mesh_res}))
 
+    # 12. the ocean dry run: rank 0 of the benchmark cells on fake groups
+    # of the production meshes, on the card and on the CPU
+    dryrun_res = phase_dryrun()
+    print(json.dumps({"dryrun": dryrun_res}))
+
     table = []
     for name, label in TABLE_CASE.items():
         r32, r64 = kres[(name, label, "f32")], kres[(name, label, "f64")]
@@ -3677,6 +3960,8 @@ def main(argv=None) -> int:
             table[-1]["launches_distributed"] = sum(
                 row["launches_per_rank"][name] * row["ranks"]
                 for row in dist_res.values())
+            # phase 12's counted steps on the card, one a record
+            table[-1]["launches_dryrun"] = dryrun_res["launches"][name]
         if name == "block_thomas":
             # the plan's tile, the narrower ones and the global variant
             # at the main path's shape, and the deep case

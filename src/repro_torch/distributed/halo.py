@@ -17,6 +17,9 @@ counts n times as much.
 The ``halo.payload`` chaos site fires on each received buffer before it is
 unpacked, as in the JAX package (there at trace time; here on every
 exchange until the fault's count is spent).
+
+`shifts_per_step` and `bytes_per_step` are the closed forms of a step's
+two counters on one rank.
 """
 from __future__ import annotations
 
@@ -67,6 +70,11 @@ class Transport:
                        copy explicit (ranks that share one card: NCCL
                        refuses two ranks on one device); CPU buffers move
                        as they are;
+      ``fake``         the group's backend is ``fake`` (the dry run,
+                       `launch/mesh.py: init_fake_group`): one real rank
+                       standing for all; a shift moves no data and returns
+                       a copy of the buffer it was given, so that the halo
+                       holds finite values;
       ``local``        no process group is initialised: one rank, whose
                        only shift is offset 0, a local copy.
     """
@@ -75,7 +83,8 @@ class Transport:
         if dist.is_initialized():
             self.rank, self.size = dist.get_rank(), dist.get_world_size()
             backend = str(dist.get_backend()).lower()
-            self.mode = "nccl" if backend == "nccl" else "gloo-staged"
+            self.mode = {"nccl": "nccl", "fake": "fake"}.get(backend,
+                                                             "gloo-staged")
         else:
             self.rank, self.size, self.mode = 0, 1, "local"
 
@@ -89,7 +98,7 @@ class Transport:
     def shift(self, buf: torch.Tensor, off: int) -> torch.Tensor:
         """Send `buf` to rank (r + off) % P; return the buffer of the same
         shape that rank (r - off) % P sent."""
-        if off % self.size == 0:
+        if off % self.size == 0 or self.mode == "fake":
             return buf.clone()
         out = self._to_wire(buf)
         got = torch.empty_like(out)
@@ -172,3 +181,23 @@ def exchange_batch(fields: Sequence[torch.Tensor], t: HaloTables,
     ring offset (fields stacked on a new leading axis): the paper's message
     aggregation, which cuts the 2D mode's shift count by the field count."""
     return list(_refresh_(torch.stack(list(fields)), t, transport).unbind(0))
+
+
+def shifts_per_step(n_offsets: int, period: int, m_2d: int) -> int:
+    """Closed form of halo.ppermute a step: over both stages, 5 field
+    exchanges and 3 m_sub (period 0) or m_sub / period (period > 0)
+    batched 2D exchanges, each one shift per ring offset; m_sub is
+    max(m_2d // 2, 1) in stage 1 and m_2d in stage 2."""
+    total = 0
+    for m_sub in (max(m_2d // 2, 1), m_2d):
+        total += 5 + (3 * m_sub if period == 0 else m_sub // period)
+    return total * n_offsets
+
+
+def bytes_per_step(msg: Sequence[int], period: int, nl: int, itemsize: int,
+                   m_2d: int) -> int:
+    """Closed form of halo.bytes a step, for the message sizes ``msg`` (one
+    a ring offset): ux, uy, T, S carry nl * 6 values a slot, eta 3, the
+    stacked 2D state 3 x 3."""
+    n2d = shifts_per_step(1, period, m_2d) - 10
+    return sum(msg) * itemsize * (2 * (4 * nl * 6 + 3) + 9 * n2d)

@@ -25,7 +25,13 @@ Three families of signatures, as in the JAX package:
 
 Every call goes through `_dispatch(op, backend)`, which adds one to the
 default metrics registry's ``kernel_dispatch{op=..., backend=...}`` counter
-and opens the range ``kops.<op>.<backend>`` (`obs/trace.py`).
+and opens the range ``kops.<op>.<backend>`` (`obs/trace.py`).  The body of
+an ocean op on ``plain`` or ``cuda`` (the kernel's plain version, or the
+CUDA launch with its operands made contiguous) runs inside `_body`: under
+`tapped(tap)` that is ``tap(kernel, operands)``, through which the dry run
+(`launch/ocean_dryrun.py`) counts the kernel by its formula
+(`roofline/kernels.py`) and none of the ops inside, so a step costs the
+same on either backend.
 ``LAUNCHES[(kernel, backend)]`` counts kernel calls by the name of the
 kernel (`KERNEL[op]`): the CUDA wrappers count their own launches, and
 `_dispatch` counts the ref and plain calls, so each call adds one to each
@@ -56,6 +62,25 @@ KERNEL = {
     "soa_to_cell": "soa_to_cell", "cell_to_soa": "cell_to_soa",
     "wkv6": "wkv6", "attention": "flash_attention",
 }
+
+
+_TAPS: list = []
+
+
+@contextlib.contextmanager
+def tapped(tap):
+    """Run the enclosed block with ``tap(kernel, operands)``, a context
+    manager, around every ocean kernel body."""
+    _TAPS.append(tap)
+    try:
+        yield
+    finally:
+        _TAPS.pop()
+
+
+def _body(kernel: str, *operands):
+    """The kernel body's context: the innermost tap's, else none."""
+    return _TAPS[-1](kernel, operands) if _TAPS else contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -89,10 +114,11 @@ def solve_r(geom, F, r_surf, backend: dispatch.BackendLike = None):
         if bk is Backend.REF:
             return vertical.solve_r(geom, F, r_surf)
         Fk, bc = _components(F, r_surf)
-        if bk is Backend.PLAIN:
-            out = matrix_free.solve_r_plain(Fk, geom.area, bc)
-        else:
-            out = matrix_free.solve_r(Fk, geom.area, bc)
+        with _body("solve_r", Fk, geom.area, bc):
+            if bk is Backend.PLAIN:
+                out = matrix_free.solve_r_plain(Fk, geom.area, bc)
+            else:
+                out = matrix_free.solve_r(Fk, geom.area, bc)
         return out.reshape(F.shape)
 
 
@@ -105,10 +131,11 @@ def solve_w(geom, F, w_floor=None, backend: dispatch.BackendLike = None):
         if bk is Backend.REF:
             return vertical.solve_w(geom, F, w_floor)
         Fk, bc = _components(F, w_floor)
-        if bk is Backend.PLAIN:
-            out = matrix_free.solve_w_plain(Fk, geom.area, bc)
-        else:
-            out = matrix_free.solve_w(Fk, geom.area, bc)
+        with _body("solve_w", Fk, geom.area, bc):
+            if bk is Backend.PLAIN:
+                out = matrix_free.solve_w_plain(Fk, geom.area, bc)
+            else:
+                out = matrix_free.solve_w(Fk, geom.area, bc)
         return out.reshape(F.shape)
 
 
@@ -120,10 +147,11 @@ def block_thomas(blocks, rhs, backend: dispatch.BackendLike = None):
     with _dispatch("block_thomas", bk):
         if bk is Backend.REF:
             return vertical.block_thomas_solve(blocks, rhs)
-        if bk is Backend.PLAIN:
-            return column_solve.block_thomas_plain(*blocks, rhs)
-        lo, dg, up = (b.contiguous() for b in blocks)
-        return column_solve.block_thomas(lo, dg, up, rhs.contiguous())
+        with _body("block_thomas", *blocks, rhs):
+            if bk is Backend.PLAIN:
+                return column_solve.block_thomas_plain(*blocks, rhs)
+            lo, dg, up = (b.contiguous() for b in blocks)
+            return column_solve.block_thomas(lo, dg, up, rhs.contiguous())
 
 
 def lateral_flux_term(geom, f, fext, speed,
@@ -135,7 +163,8 @@ def lateral_flux_term(geom, f, fext, speed,
     signed normal flux speed shared by the k fields.  Returns (k, nl, 6, nt).
     The ref backend runs the plain version, as it has no other form."""
     bk = dispatch.resolve(backend, f.device)
-    with _dispatch("lateral_flux", bk):
+    with _dispatch("lateral_flux", bk), \
+            _body("lateral_flux", f, fext, speed, geom.edge_len):
         if bk is not Backend.CUDA:
             return horizontal_flux.lateral_flux_plain(f, fext, speed,
                                                       geom.edge_len)
@@ -152,9 +181,10 @@ def tridiag(dl, d, du, b, backend: dispatch.BackendLike = None):
     with _dispatch("tridiag", bk):
         if bk is Backend.REF:
             return _ref.tridiag(dl, d, du, b)
-        if bk is Backend.PLAIN:
-            return _tridiag.tridiag_plain(dl, d, du, b)
-        return _tridiag.tridiag(*(t.contiguous() for t in (dl, d, du, b)))
+        with _body("tridiag", dl, d, du, b):
+            if bk is Backend.PLAIN:
+                return _tridiag.tridiag_plain(dl, d, du, b)
+            return _tridiag.tridiag(*(t.contiguous() for t in (dl, d, du, b)))
 
 
 def _sweep_cell(op, ref_fn, plain_fn, kernel_fn, F, area, bc, backend):
@@ -167,10 +197,12 @@ def _sweep_cell(op, ref_fn, plain_fn, kernel_fn, F, area, bc, backend):
         rows, C = F.shape
         Fk = F.reshape(1, rows // 6, 6, C)
         a, bck = area.reshape(C), bc.reshape(1, 3, C)
-        if bk is Backend.PLAIN:
-            out = plain_fn(Fk, a, bck)
-        else:
-            out = kernel_fn(Fk.contiguous(), a.contiguous(), bck.contiguous())
+        with _body(KERNEL[op], Fk, a, bck):
+            if bk is Backend.PLAIN:
+                out = plain_fn(Fk, a, bck)
+            else:
+                out = kernel_fn(Fk.contiguous(), a.contiguous(),
+                                bck.contiguous())
         return out.reshape(rows, C)
 
 
@@ -197,11 +229,12 @@ def block_thomas_cell(lo, dg, up, b, backend: dispatch.BackendLike = None):
         if bk is Backend.REF:
             return _ref.block_thomas_cell(lo, dg, up, b)
         rhs = torch.movedim(b, 2, 0).contiguous()          # (k, nl, 6, C)
-        if bk is Backend.PLAIN:
-            x = column_solve.block_thomas_plain(lo, dg, up, rhs)
-        else:
-            x = column_solve.block_thomas(lo.contiguous(), dg.contiguous(),
-                                          up.contiguous(), rhs)
+        with _body("block_thomas", lo, dg, up, rhs):
+            if bk is Backend.PLAIN:
+                x = column_solve.block_thomas_plain(lo, dg, up, rhs)
+            else:
+                x = column_solve.block_thomas(lo.contiguous(), dg.contiguous(),
+                                              up.contiguous(), rhs)
         return torch.movedim(x, 0, 2)
 
 
@@ -211,9 +244,10 @@ def soa_to_cell(x, backend: dispatch.BackendLike = None):
     with _dispatch("soa_to_cell", bk):
         if bk is Backend.REF:
             return _ref.soa_to_cell(x)
-        if bk is Backend.PLAIN:
-            return cell_transpose.soa_to_cell_plain(x)
-        return cell_transpose.soa_to_cell(x.contiguous())
+        with _body("soa_to_cell", x):
+            if bk is Backend.PLAIN:
+                return cell_transpose.soa_to_cell_plain(x)
+            return cell_transpose.soa_to_cell(x.contiguous())
 
 
 def cell_to_soa(x, nt, backend: dispatch.BackendLike = None):
@@ -222,9 +256,10 @@ def cell_to_soa(x, nt, backend: dispatch.BackendLike = None):
     with _dispatch("cell_to_soa", bk):
         if bk is Backend.REF:
             return _ref.cell_to_soa(x, nt)
-        if bk is Backend.PLAIN:
-            return cell_transpose.cell_to_soa_plain(x, nt)
-        return cell_transpose.cell_to_soa(x.contiguous(), nt)
+        with _body("cell_to_soa", x, nt):
+            if bk is Backend.PLAIN:
+                return cell_transpose.cell_to_soa_plain(x, nt)
+            return cell_transpose.cell_to_soa(x.contiguous(), nt)
 
 
 # ---------------------------------------------------------------------------

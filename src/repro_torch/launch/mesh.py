@@ -10,6 +10,11 @@ size), of the model's device type: ``cuda`` unless the caller asks for
 The sharding rules (`models/sharding.py`) read only a mesh's axis names
 and sizes, so they also take a `MeshSpec`, which needs no process group:
 the tests hold the 256- and 512-device layouts against JAX's with one.
+
+`init_fake_group(world)` starts torch's ``fake`` backend as rank 0 of
+``world`` ranks: one real process that a mesh of ``world`` devices can be
+built over and whose collectives move no data (the dry run's group,
+`launch/ocean_dryrun.py`).
 """
 from __future__ import annotations
 
@@ -64,6 +69,19 @@ def axis_names(mesh) -> Tuple[str, ...]:
     if isinstance(mesh, MeshSpec):
         return mesh.axis_names
     return tuple(mesh.mesh_dim_names)
+
+
+def init_fake_group(world: int) -> None:
+    """Initialise the default process group on torch's ``fake`` backend
+    (`torch.testing._internal.distributed.fake_pg`) as rank 0 of ``world``;
+    the caller destroys it (`torch.distributed.destroy_process_group`)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("init_fake_group: a process group is already "
+                           "initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
 
 
 def make_mesh(spec: MeshSpec, device_type: str = "cuda"):

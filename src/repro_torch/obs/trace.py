@@ -8,6 +8,8 @@ initialised, for external timeline tools.  The stepper's stages
 (``imex.stage1``, ``stage.*``), the ops' dispatches (``kops.<op>.<backend>``)
 and the diagnostics (``obs.diagnostics``) are wrapped in it;
 ``python -m repro_torch.profile_step`` sums device time per range.
+``open_ranges()`` names the ranges open now, outermost first (the dry
+run, `launch/ocean_dryrun.py`, tags each op's bytes by them).
 
 ``trace_session`` wraps ``torch.profiler.profile`` and writes a Chrome
 trace (``trace.json``) into the run directory.  It is opt-in: enabled
@@ -28,6 +30,9 @@ ENV_RUN_DIR = "REPRO_RUN_DIR"
 DEFAULT_RUNS_ROOT = "runs"
 TRACE_FILE = "trace.json"
 
+# the names of the ranges open now, outermost first
+_OPEN: list = []
+
 
 def trace_enabled() -> bool:
     return os.environ.get(ENV_TRACE, "0") not in ("", "0", "false", "False")
@@ -45,12 +50,21 @@ def default_run_dir(prefix: str = "trace") -> str:
 def annotate(name: str) -> Iterator[None]:
     """A profiler range (record_function) and, once CUDA is initialised, an
     NVTX range of the same name."""
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_initialized():
-            with torch.cuda.nvtx.range(name):
+    _OPEN.append(name)
+    try:
+        with torch.profiler.record_function(name):
+            if torch.cuda.is_initialized():
+                with torch.cuda.nvtx.range(name):
+                    yield
+            else:
                 yield
-        else:
-            yield
+    finally:
+        _OPEN.pop()
+
+
+def open_ranges() -> tuple:
+    """The names of the `annotate` ranges open now, outermost first."""
+    return tuple(_OPEN)
 
 
 @contextlib.contextmanager

@@ -10,7 +10,8 @@ against the plain backend, two steps of the small GBR case (every forcing
 term) through cuda against plain, a per-call step against a fused one, and
 the step boundary with its dispatch counts, and the resilient campaign
 (two fault-free legs bitwise, a cuda -> CPU -> cuda restore bitwise, a
-poisoned leg bitwise to the fault-free one).
+poisoned leg bitwise to the fault-free one), and the ocean dry run's record
+of a small cell on the card against its record on the CPU.
 
 Run on a machine with a CUDA card (no JAX needed):
 
@@ -1011,3 +1012,42 @@ def test_mesh_2x2_on_the_card_matches_one_device(cuda, name):
     for a, b in zip(got[0]["params"], T.leaves(state[0])):
         assert np.abs(a - b.cpu().numpy()).max() <= 1e-5
 
+
+
+# ---------------------------------------------------------------------------
+# the ocean dry run: the card's record against the CPU's
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("period", [0, 2])
+def test_dryrun_record_on_the_card_is_the_cpu_record(cuda, period):
+    """`trace_ocean` of a small cell (`rect_mesh(16, 16)`, 4 layers) on a
+    fake group of 8 ranks: on the card through the CUDA kernels, and on the
+    CPU through their plain versions, the same bytes, flops and halo
+    counts, every kernel launched on the card, and the same state after
+    the counted step: every leaf finite, T and S within 1e-4 of
+    max(|x|, 1), as chip_smoke.py's phase 4 holds cuda against plain in
+    float32."""
+    from repro_torch.launch import ocean_dryrun
+    from repro_torch.launch.mesh import small_spec
+    cell = ocean_dryrun.OceanCell("small", 16, 16, 16e3, 16e3, 4, 4, 30.0,
+                                  20.0, halo_exchange_period=period)
+    traced = {dev: ocean_dryrun.trace_ocean(cell, small_spec(2, 4), device=dev,
+                                            return_state=True)
+              for dev in ("cuda", "cpu")}
+    recs = {dev: rec for dev, (rec, _) in traced.items()}
+    card, cpu = (traced[dev][1] for dev in ("cuda", "cpu"))
+    for (path, a), b in zip(T.flatten_with_path(card), T.leaves(cpu)):
+        if not isinstance(a, torch.Tensor):
+            assert a == b, T.keystr(path)
+            continue
+        a = a.cpu()
+        assert bool(torch.isfinite(a).all()), T.keystr(path)
+        if T.keystr(path) in (".T", ".S"):
+            scale = max(float(a.abs().max()), 1.0)
+            assert float((a - b).abs().max()) <= 1e-4 * scale, T.keystr(path)
+    for f in ("bytes", "flops", "n_collectives", "coll_bytes"):
+        assert recs["cuda"]["hlo"][f] == recs["cpu"]["hlo"][f], f
+    assert recs["cuda"]["partition"] == recs["cpu"]["partition"]
+    assert ({k: v["launches"] for k, v in recs["cuda"]["kernels"].items()}
+            == {"solve_r": 2, "solve_w": 2, "block_thomas": 2,
+                "lateral_flux": 4, "tridiag": 4})
+    assert recs["cuda"]["memory"]["peak_per_device"] > 0

@@ -5,8 +5,9 @@ data pipeline, campaign launcher, chaos smoke and timing helper, the
 distributed runtime's partition, halo exchange, ocean, spawn helper and
 ocean cells, the LM configs, models and serving launcher, and the LM
 training path's optimizer, gradient compression, training launcher and
-`train_lm`, and the mesh path's meshes, sharding rules and staged process
-group among them), `chip_smoke.py` (imported, not run) and the
+`train_lm`, the mesh path's meshes, sharding rules and staged process
+group, and the dry run's roofline, kernel formulas and launchers among
+them), `chip_smoke.py` (imported, not run) and the
 `obs_smoke` entry point
 are imported in a fresh interpreter in which a
 meta-path finder refuses `jax`, `jaxlib` and `repro`; the test then checks
@@ -37,6 +38,9 @@ TRAIN = ("optim", "optim.adamw", "optim.compression", "launch.train",
          "train_lm")
 # the LM mesh path: the meshes, the sharding rules and the ranks' group
 MESH = ("launch.mesh", "models.sharding", "distributed.staged")
+# the ocean dry run: the roofline, the kernels' formulas and the launchers
+DRYRUN = ("roofline", "roofline.analysis", "roofline.rederive",
+          "roofline.kernels", "launch.ocean_dryrun", "launch.dryrun")
 
 SCRIPT = textwrap.dedent(r"""
     import importlib, importlib.util, pkgutil, sys
@@ -78,7 +82,7 @@ def test_port_imports_no_jax_and_no_repro():
     n, names = int(lines[-1]), set(lines[-2].split())
     # every module of the package, obs and obs_smoke included
     assert n >= 35, res.stdout
-    assert names >= {f"repro_torch.{m}" for m in RUNTIME + LM + TRAIN + MESH}, \
+    assert names >= {f"repro_torch.{m}" for m in RUNTIME + LM + TRAIN + MESH + DRYRUN}, \
         res.stdout
 
 

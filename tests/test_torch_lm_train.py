@@ -422,6 +422,96 @@ def test_two_train_steps_match_jax():
     assert int(tstate[1].step) == int(jstate[1].step) == 2
 
 
+# AdamW at its default eps 1e-8 on the two architectures whose mesh cases
+# missed JAX there (gemma2-9b, jamba; `tests/test_torch_lm_mesh.py` runs
+# eps 1e-3).  Step 1 moves an element by lr g / (|g| + eps) (the bias
+# corrections cancel), whose slope eps / (|g| + eps)^2 is 1 / eps at g = 0:
+# the gradients' float32 rounding (within GRAD_TOL) moves only elements
+# whose |g| is a few eps, and those by up to lr.  Read at these inputs:
+# gemma2-9b's step 1 within 0.0032 lr of JAX's, jamba's within 0.208 lr
+# (a miss of PARAM_TOL), its 11 elements off by more than NEAR_TOL at |g|
+# (clipped) of at most 3.19 eps; the port's AdamW on JAX's gradients gives
+# JAX's step to 4.8e-7; jamba's free-running step 2 misses MOMENT_TOL (m
+# 5.3e-3, v 5.5e-3 of a leaf's max; gemma2-9b 1.7e-5, 2.4e-5), and its
+# step 2 from JAX's step-1 state does not (1.2e-5, 2.0e-5): the misses are
+# conditioning of the update, not a port fault.
+NEAR_TOL = PARAM_TOL / 5    # a step-1 element "near" a miss
+NEAR_EPS = 16               # the most |g| / eps such an element may have
+ADAMW_TOL = 1e-5            # the port's update on JAX's gradients (4.8e-7)
+
+
+@pytest.mark.parametrize("name", ["gemma2-9b", "jamba-1.5-large-398b"])
+def test_adamw_default_eps_misses_are_conditioning(name):
+    jm, jp, tm, tp = L.pair(name, seed=0, backend="plain")
+    ds = TokenDataset(vocab=tm.arch.vocab, seq_len=32, global_batch=4, seed=0,
+                      device="cpu")
+    jcfg, tcfg = jadamw.AdamWConfig(lr=LR), adamw.AdamWConfig(lr=LR)
+    assert tcfg.eps == jcfg.eps == 1e-8
+    to_port = lambda t: convert.lm_params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, t), device="cpu")
+
+    # step 1: the loss and the gradients
+    jloss, jg = jax.jit(jax.value_and_grad(jm.loss))(jp, _jbatch(ds, 0))
+    loss, g = value_and_grad(tm.loss, tp, ds.batch_at(0))
+    assert abs(float(loss) - float(jloss)) <= STEP_TOL * abs(float(jloss))
+    errs = _leaf_errs(g, jax.tree_util.tree_map(np.asarray, jg))
+    print(f"{name}: step 1's gradients within {max(errs.values()):.3e} of a "
+          f"leaf's max")
+    assert max(errs.values()) <= GRAD_TOL, errs
+
+    # the port's AdamW on JAX's gradients is JAX's step
+    jp1, jo1 = jax.jit(functools.partial(jadamw.update, cfg=jcfg))(
+        jg, jadamw.init(jp), jp)
+    xp1, xo1 = adamw.update(to_port(jg), adamw.init(tp), tp, tcfg)
+    jl1 = [np.asarray(x) for x in jax.tree_util.tree_leaves(jp1)]
+    on_jax_grads = max(float(np.abs(x.numpy() - j).max())
+                       for x, j in zip(T.leaves(xp1), jl1))
+    print(f"{name}: the port's AdamW on JAX's gradients within "
+          f"{on_jax_grads:.3e} of JAX's step")
+    assert on_jax_grads <= ADAMW_TOL
+    _close_moments(xo1.m, jo1.m)
+    _close_moments(xo1.v, jo1.v)
+
+    # the port's own step 1: where its parameters part from JAX's
+    tp1, to1 = adamw.update(g, adamw.init(tp), tp, tcfg)
+    scale = min(1.0, jcfg.clip_norm / (float(jadamw.global_norm(jg)) + 1e-12))
+    near, worst = [], 0.0
+    for x, j, gt, gj in zip(T.leaves(tp1), jl1, T.leaves(g),
+                            jax.tree_util.tree_leaves(jg)):
+        d = np.abs(x.numpy() - j)
+        worst = max(worst, float(d.max()))
+        gt, gj = gt.numpy() * scale, np.asarray(gj) * scale
+        # each element within the update's slope times its gradient's
+        # difference: eps / (min |g| + eps)^2 on one side of 0, 1 / eps
+        # across it
+        low = np.minimum(np.abs(gt), np.abs(gj))
+        slope = np.where(gt * gj > 0, jcfg.eps / (low + jcfg.eps) ** 2,
+                         1.0 / jcfg.eps)
+        assert (d <= LR * slope * np.abs(gt - gj) + ADAMW_TOL).all()
+        near.extend(np.abs(gj[d > NEAR_TOL]) / jcfg.eps)
+    print(f"{name}: step 1's parameters at most {worst / LR:.4g} lr from "
+          f"JAX's; {len(near)} elements off by more than {NEAR_TOL:g}, their "
+          f"|g| / eps at most {max(near, default=0.0):.4g}")
+    assert max(near, default=0.0) <= NEAR_EPS
+
+    # step 2 from JAX's step-1 state holds the moments (the free-running
+    # step 2, from the port's own step 1, is printed: it misses)
+    jstep = _jax_train_step(jm, jcfg)
+    tstep = ttrain.make_train_step(tm, tcfg)
+    (jp2, jo2), _ = jstep((jp1, jo1), _jbatch(ds, 1))
+    jo1_port = convert.adamw_state_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jo1), device="cpu")
+    (_, from_jax), _ = tstep((to_port(jp1), jo1_port), ds.batch_at(1))
+    (_, free), _ = tstep((tp1, to1), ds.batch_at(1))
+    for what in ("m", "v"):
+        want = jax.tree_util.tree_map(np.asarray, getattr(jo2, what))
+        print(f"{name} step 2 {what}: free-running "
+              f"{max(_leaf_errs(getattr(free, what), want).values()):.3e}, "
+              f"from JAX's step 1 "
+              f"{max(_leaf_errs(getattr(from_jax, what), want).values()):.3e}")
+        _close_moments(getattr(from_jax, what), getattr(jo2, what))
+
+
 @pytest.mark.parametrize("writer", ["jax", "port"])
 def test_checkpoint_resumes_across_frameworks(writer, tmp_path):
     """One framework's TrainRunner runs 2 steps and checkpoints (params,

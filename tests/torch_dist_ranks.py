@@ -156,7 +156,8 @@ def shifts_per_step(n_offsets: int, period: int, m_2d: int = M2D) -> int:
     """Closed form of halo.ppermute a step: over both stages, 5 field
     exchanges and 3 m_sub (period 0) or m_sub / period (period > 0)
     batched 2D exchanges, each one shift per ring offset; m_sub is
-    max(m_2d // 2, 1) in stage 1 and m_2d in stage 2."""
+    max(m_2d // 2, 1) in stage 1 and m_2d in stage 2.  The tests' own
+    copy, independent of `halo.shifts_per_step`, which it checks."""
     total = 0
     for m_sub in (max(m_2d // 2, 1), m_2d):
         total += 5 + (3 * m_sub if period == 0 else m_sub // period)
@@ -164,11 +165,12 @@ def shifts_per_step(n_offsets: int, period: int, m_2d: int = M2D) -> int:
 
 
 def bytes_per_step(msg: list, period: int, itemsize: int = 8,
-                   m_2d: int = M2D) -> int:
+                   m_2d: int = M2D, nl: int = NL) -> int:
     """Closed form of halo.bytes a step: ux, uy, T, S carry nl * 6 values
-    a slot, eta 3, the stacked 2D state 3 x 3."""
+    a slot, eta 3, the stacked 2D state 3 x 3 (the tests' own copy of
+    `halo.bytes_per_step`)."""
     n2d = shifts_per_step(1, period, m_2d) - 10
-    return sum(msg) * itemsize * (2 * (4 * NL * 6 + 3) + 9 * n2d)
+    return sum(msg) * itemsize * (2 * (4 * nl * 6 + 3) + 9 * n2d)
 
 
 # ---------------------------------------------------------------------------
