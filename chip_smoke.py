@@ -10,6 +10,7 @@
     python3 chip_smoke.py --train-only            # the build and phase 10
     python3 chip_smoke.py --mesh-only             # the build and phase 11
     python3 chip_smoke.py --dryrun-only           # the build and phase 12
+    python3 chip_smoke.py --lm-dryrun-only        # the build and phase 13
 
 With --k7-only, K7 through the default call of the repro_torch found in
 DIR (an earlier checkout's, to time two kernels in one run), by the three
@@ -19,8 +20,8 @@ with --campaign-only, the build and phase 7 (phase 4's bare step is not
 run, so the runner's overhead over it is not printed); with
 --distributed-only, the build and phase 8; with --serve-only, the build
 and phase 9; with --train-only, the build and phase 10; with --mesh-only,
-the build and phase 11; with --dryrun-only, the build and phase 12.  Each
-prints its
+the build and phase 11; with --dryrun-only, the build and phase 12; with
+--lm-dryrun-only, the build and phase 13.  Each prints its
 lines, a JSON line and the card's name and power limit.
 Phases of the run with no arguments:
 
@@ -198,11 +199,11 @@ Phases of the run with no arguments:
                 olmo-1b (16 layers, d 2048, K9 at d 128, causal) and
                 rwkv6-3b (32 layers, d 2560, 40 heads of 64, K8), with the
                 port's seeded parameters, in float32 and then bfloat16,
-                under `torch.inference_mode()`: `Model.prefill` of 4 x 1024
+                under `torch.inference_mode()`: `Model.prefill` of 4 x 512
                 seeded tokens through `auto` (K9 once an attention layer,
                 K8 once an RWKV layer, counted, the registry's cuda
                 dispatches equal), against `plain` on the card; then
-                `serve.generate` (the 1024 prompt tokens stepped through
+                `serve.generate` (the 512 prompt tokens stepped through
                 `decode_step`, then 32 greedy tokens), which must launch
                 neither kernel, its last prompt-step logits against the
                 prefill's; both held to SERVE_TOL of max |logit| (1e-3 in
@@ -240,7 +241,7 @@ Phases of the run with no arguments:
                 ranks that share the card (one process each on cuda:0,
                 `distributed.spawn.run(device="cuda")`), laid out by
                 `launch.train`'s rules (TP over "model", FSDP over
-                "data"), MESH_STEPS in-place AdamW steps (olmo-1b 5,
+                "data"), MESH_STEPS in-place AdamW steps (olmo-1b 3,
                 rwkv6-3b 2) from the parameters of phase 10's seed,
                 against the same steps on one device (its leaves kept on
                 the card, which the ranks read through CUDA IPC): the
@@ -286,13 +287,29 @@ Phases of the run with no arguments:
                 DRYRUN_TIMED steps on the card with the exchanges faked
                 ("one rank, no communication": not a scaling figure)
                 beside its roofline memory_s and its count of eager ops.
+ 13. LM dry run — `launch/lm_dryrun.trace_cell` on a fake group of the
+                (16, 16) production mesh, traced on fake CUDA tensors:
+                olmo-1b train_4k and prefill_32k, rwkv6-3b prefill_32k and
+                decode_32k (LMDRY_CELLS); olmo-1b train_4k's record must
+                equal a CPU trace of the same cell (LMDRY_HELD; started in
+                a subprocess after the build, so it runs beside phases
+                3-12) in hlo.bytes, hlo.flops and argument bytes.  Each
+                distinct K9 / K8 call the traces record (the rank's local
+                shapes, dtype and options) is run once through `ops`
+                on `auto` on seeded operands of that shape (counted: the
+                kernels line's `launches_lm_dryrun`; both must launch),
+                held against plain as phase 6 holds it (`model_held`), and
+                timed beside its bound from `roofline/kernels.py` and its
+                share of the bound.  Prints each record's roofline summary,
+                its bytes, flops, collectives by kind and peak.
 
 The line before the last is the card's `nvidia-smi` name and power limit;
 the line before that is the JSON kernel table (K8's and K9's `launches`
 are one training step's of phase 10, their prefills' under
 `launches_serve`, phase 11's ranks' under `launches_mesh`, phase 12's
-traced steps' under `launches_dryrun`); the last line
-is {"ok": true, "device": {...}}.
+traced steps' under `launches_dryrun`, phase 13's calls at the dry run's
+shapes under `launches_lm_dryrun`); the last line is {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -2438,7 +2455,9 @@ def phase_distributed() -> dict:
 # phase 9: the LM serving path at full width and depth
 # ---------------------------------------------------------------------------
 SERVE_ARCHS = ("olmo-1b", "rwkv6-3b")   # configs/archs.py, full size
-SERVE_B, SERVE_T, SERVE_GEN = 4, 1024, 32
+# the prompt: 512 tokens (1,024 until phase 13 needed the time; each held
+# reading stays, the prompt stepped through decode is half as long)
+SERVE_B, SERVE_T, SERVE_GEN = 4, 512, 32
 SERVE_PREFILL_REPS = 3      # timed prefills after the counted one
 # last-token logits, of max |logit|: cuda against plain, and serve's
 # decode-stepped prompt against cuda prefill.  float32: the kernels' and the
@@ -3061,9 +3080,11 @@ def phase_training() -> dict:
 MESH_SHAPE = (2, 2)       # ("data", "model"): 4 ranks, every one on cuda:0
 # steps of each model: rwkv6-3b's take 30-50 s on these ranks (NVIDIA H100),
 # so it runs 2 (one to warm up, one timed) to keep the whole script inside
-# its 1,200 s; olmo-1b's first MESH_WARMUP steps are not timed either
-MESH_STEPS = {"olmo-1b": 5, "rwkv6-3b": 2}
-MESH_WARMUP = {"olmo-1b": 2, "rwkv6-3b": 1}
+# its 1,200 s; olmo-1b runs 3 (5, 2 of them warm-up, until phase 13 needed
+# the time: m_last, v_last and update are still read after more than one
+# step), its first MESH_WARMUP steps not timed either
+MESH_STEPS = {"olmo-1b": 3, "rwkv6-3b": 2}
+MESH_WARMUP = {"olmo-1b": 1, "rwkv6-3b": 1}
 MESH_TIMEOUT_S = 900
 # What the mesh run is held to, against the single-device cuda steps from
 # the same parameters and batch (bfloat16 parameters and activations, the
@@ -3089,7 +3110,8 @@ MESH_TIMEOUT_S = 900
 #   element whose gradient is rounding noise parts by 2 lr a step on a
 #   sound mesh, as far as any fault can take it.
 # The limits of m_last, v_last and update are about twice olmo-1b's
-# readings on a sound mesh (NVIDIA H100: 7.02e-2, 0.110, 0.103).  Planted
+# readings on a sound mesh after 5 steps (NVIDIA H100: 7.02e-2, 0.110,
+# 0.103); the run now takes 3.  Planted
 # faults fail them: half the batch on each data rank reads 0.7-1.0 in
 # olmo-1b's m1; the parameters left unchanged (moments updated) 1.0 in its
 # update; u's gradient not summed over the data axis 0.85 in rwkv6-3b's
@@ -3777,6 +3799,188 @@ def phase_dryrun() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the LM dry run on a fake group of the production mesh
+# ---------------------------------------------------------------------------
+LMDRY_CELLS = (("olmo-1b", "train_4k"), ("olmo-1b", "prefill_32k"),
+               ("rwkv6-3b", "prefill_32k"), ("rwkv6-3b", "decode_32k"))
+LMDRY_HELD = ("olmo-1b", "train_4k")     # the card's record against the CPU's
+LMDRY_REPS = 5                           # timed launches of each call
+LMDRY_CPU = r"""
+import json, sys
+import torch
+torch.set_num_threads(1)
+sys.path.insert(0, sys.argv[1])
+from repro_torch.launch import lm_dryrun
+from repro_torch.launch.mesh import production_spec
+rec = lm_dryrun.trace_cell(sys.argv[2], sys.argv[3], production_spec(),
+                           device="cpu")
+with open(sys.argv[4], "w") as f:
+    json.dump(rec, f)
+"""
+
+
+def start_lm_cpu_trace(src: str) -> tuple:
+    """The CPU trace of LMDRY_HELD at (16, 16), in a subprocess on one
+    thread: (the process, the file its record goes to)."""
+    import tempfile
+    fd, path = tempfile.mkstemp(suffix=".json", prefix="lmdry_cpu_")
+    os.close(fd)
+    proc = subprocess.Popen([sys.executable, "-c", LMDRY_CPU, src,
+                             *LMDRY_HELD, path], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, path
+
+
+def finish_lm_cpu_trace(job: tuple) -> dict:
+    proc, path = job
+    out, _ = proc.communicate(timeout=900)
+    try:
+        if proc.returncode:
+            raise AssertionError(f"lm dryrun: the CPU trace failed "
+                                 f"(rc {proc.returncode}): {out[-3000:]}")
+        with open(path) as f:
+            return json.load(f)
+    finally:
+        os.remove(path)
+
+
+def lm_call_operands(name: str, call: dict, gen) -> list:
+    """Seeded operands on the card for one recorded call of K9 (q, k, v
+    ~ 0.3 N) or K8 (r, k, v, u ~ 0.5 N, w = exp(-exp(0.5 N - 1))), at its
+    local shapes and dtype (phase 6's recipes)."""
+    dt = getattr(torch, call["dtype"])
+    n = lambda s: torch.randn(s, generator=gen, device="cuda")
+    shapes = [tuple(s) for s in call["shapes"]]
+    if name == "flash_attention":
+        return [(0.3 * n(s)).to(dt) for s in shapes]
+    r, k, v, w, u = shapes
+    return [(0.5 * n(r)).to(dt), (0.5 * n(k)).to(dt), (0.5 * n(v)).to(dt),
+            torch.exp(-torch.exp(0.5 * n(w) - 1.0)).to(dt),
+            (0.5 * n(u)).to(dt)]
+
+
+def lm_call_fns(name: str, call: dict, args: list) -> tuple:
+    """(the call through `ops` on `auto`, on plain, the kernel's wrapper
+    alone) of one recorded call."""
+    from repro_torch.kernels import flash_attention, ops, wkv6
+    if name == "wkv6":
+        return (lambda: ops.wkv6(*args), lambda: ops.wkv6(*args, backend="plain"),
+                lambda: wkv6.wkv6(*args))
+    causal, window, softcap, stats = call["options"]
+    fn = ops.attention_with_stats if stats else ops.attention
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    return (lambda: fn(*args, **kw), lambda: fn(*args, backend="plain", **kw),
+            lambda: flash_attention.flash_attention(*args, stats=stats, **kw))
+
+
+def phase_lm_dryrun(cpu_job: tuple) -> dict:
+    """Phase 13 (see the module docstring): the card's traces, the held
+    record against the CPU's, and every recorded K9 / K8 call run, held and
+    timed at the rank's shapes."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import dryrun, lm_dryrun
+    from repro_torch.launch.mesh import production_spec
+    from repro_torch.roofline import kernels as rk
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    recs = {}
+    for arch, shape in LMDRY_CELLS:
+        recs[(arch, shape)] = rec = lm_dryrun.trace_cell(
+            arch, shape, production_spec(), device="cuda")
+        hlo, mem = rec["hlo"], rec["memory"]
+        log(f"lm dryrun {arch} {shape}@256:cuda{dryrun.summary(rec)}")
+        log(f"lm dryrun {arch} {shape}@256:cuda: peak {mem['peak_per_device']} "
+            f"B, arguments {mem['argument_bytes']} B; hlo.bytes "
+            f"{hlo['bytes']:.0f}, hlo.flops {hlo['flops']:.0f}; collectives "
+            f"{hlo['n_collectives']}, bytes by kind {hlo['coll_by_kind']}; "
+            f"bytes by source { {k: float(f'{v:.4g}') for k, v in hlo['bytes_by_source'].items()} }; "
+            f"kernel calls { {k: v['calls'] for k, v in rec['kernels'].items()} }; "
+            f"{rec['n_ops']} ops; card {rec.get('card')}")
+    cpu = finish_lm_cpu_trace(cpu_job)
+    card = recs[LMDRY_HELD]
+    failures = [f"{'/'.join(LMDRY_HELD)} {key}: cuda {a} against cpu {b}"
+                for key, a, b in (
+                    ("hlo.bytes", card["hlo"]["bytes"], cpu["hlo"]["bytes"]),
+                    ("hlo.flops", card["hlo"]["flops"], cpu["hlo"]["flops"]),
+                    ("argument bytes", card["memory"]["argument_bytes"],
+                     cpu["memory"]["argument_bytes"]))
+                if a != b]
+    log(f"lm dryrun {'/'.join(LMDRY_HELD)}@256: cuda / cpu hlo.bytes "
+        f"{card['hlo']['bytes']:.0f} / {cpu['hlo']['bytes']:.0f}, hlo.flops "
+        f"{card['hlo']['flops']:.0f} / {cpu['hlo']['flops']:.0f}, arguments "
+        f"{card['memory']['argument_bytes']} / {cpu['memory']['argument_bytes']}")
+    if failures:
+        raise AssertionError(f"lm dryrun: {failures}")
+    calls = {}
+    for (arch, shape), rec in recs.items():
+        for name, k in rec["kernels"].items():
+            for call in k["shapes"]:
+                key = (name, json.dumps([call["shapes"], call["dtype"],
+                                         call["options"]]))
+                calls.setdefault(key, dict(call, kernel=name, cells=[]))
+                calls[key]["cells"].append(f"{arch}/{shape}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    operands = {key: lm_call_operands(key[0], call, gen)
+                for key, call in calls.items()}
+    # each call once through `ops` on `auto`: the launches of this run
+    dispatch.reset_launches()
+    outs = {key: lm_call_fns(key[0], call, operands[key])[0]()
+            for key, call in calls.items()}
+    torch.cuda.synchronize()
+    launches = {k: dispatch.LAUNCHES[(k, "cuda")]
+                for k in ("flash_attention", "wkv6")}
+    if not all(launches.values()):
+        raise AssertionError(f"lm dryrun: a kernel of the path was not "
+                             f"launched: {launches}")
+    rows = []
+    for key, call in calls.items():
+        name, args, out = key[0], operands.pop(key), outs.pop(key)
+        _, plain, kernel = lm_call_fns(name, call, args)
+        ref = plain()
+        pick = lambda o: o[0] if isinstance(o, tuple) else o
+        err, share = model_held(pick(out), pick(ref), pick(out).dtype)
+        if not share <= 1.0:
+            raise AssertionError(f"lm dryrun {name} {call['shapes'][0]} "
+                                 f"{call['dtype']} {call['options']}: differs "
+                                 f"from plain by {err:.3e}, {share:.3f} of "
+                                 f"its limit")
+        cost = rk.COST[name](*args, *call["options"])
+        dt = getattr(torch, call["dtype"])
+        bound, by = bound_of(cost.bytes, cost.flops, dt)
+        ms = time_ms(kernel, reps=LMDRY_REPS)
+        library = None
+        if name == "flash_attention" and call["options"][1:3] == [None, None]:
+            # SDPA computes the same output (not m, l) at the same shapes
+            q, k, v = (t[None] for t in args)
+            library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=call["options"][0]), reps=LMDRY_REPS)
+        rows.append(dict(kernel=name, shapes=call["shapes"], dtype=call["dtype"],
+                         options=call["options"], cells=call["cells"],
+                         calls_a_step=call["calls"], max_abs_err=err,
+                         limit_share=share, ms=ms, bound_ms=bound, bound_by=by,
+                         bound_share=bound / ms, bytes=cost.bytes,
+                         flops=cost.flops, library_ms=library))
+        log(f"lm dryrun {name} {call['shapes'][0]} {call['dtype']} options "
+            f"{call['options']} (cells {call['cells']}, {call['calls']} calls a "
+            f"step): max_abs_err vs plain {err:.3e} ({share:.3f} of its "
+            f"limit); {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+            f"{bound / ms:.3f} of the bound; SDPA "
+            f"{'n/a' if library is None else f'{library:.4f} ms'}")
+        del args, out, ref
+    log(f"lm dryrun: phase 13 in {time.perf_counter() - t0:.1f} s; {len(rows)} "
+        f"distinct kernel calls at the rank's shapes; launches {launches}; "
+        f"nvidia-smi: {nvidia_smi()}")
+    res = {"/".join(c): {k: rec[k] for k in ("hlo", "roofline", "n_ops",
+                                             "kernels", "trace_s", "options")}
+           | {"memory": {k: v for k, v in rec["memory"].items()
+                         if k != "arguments"}}
+           for c, rec in recs.items()}
+    res["calls"] = rows
+    res["launches"] = launches
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k7-only", action="store_true",
@@ -3795,6 +3999,8 @@ def main(argv=None) -> int:
                     help="only build and run phase 11 (phase_mesh)")
     ap.add_argument("--dryrun-only", action="store_true",
                     help="only build and run phase 12 (phase_dryrun)")
+    ap.add_argument("--lm-dryrun-only", action="store_true",
+                    help="only build and run phase 13 (phase_lm_dryrun)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory holding repro_torch (default: ./src)")
     args = ap.parse_args(argv)
@@ -3864,6 +4070,14 @@ def main(argv=None) -> int:
         print(nvidia_smi())
         return 0
 
+    if args.lm_dryrun_only:
+        log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}")
+        cpu_job = start_lm_cpu_trace(args.src)
+        cuda_lib.build()
+        print(json.dumps({"lm_dryrun": phase_lm_dryrun(cpu_job)}))
+        print(nvidia_smi())
+        return 0
+
     # 1. device
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -3888,6 +4102,8 @@ def main(argv=None) -> int:
     for variant, counts in sorted(sass.items()):
         log(f"sass {variant} ({tool}): {counts}")
     check_sass(sass)
+    # phase 13's CPU trace, on one thread beside the phases on the card
+    lm_cpu_job = start_lm_cpu_trace(args.src)
 
     # 3. kernels at the main path's shapes
     kres = phase_kernels(2 * NX * (NX // 2), NL, SEED)
@@ -3937,6 +4153,11 @@ def main(argv=None) -> int:
     # of the production meshes, on the card and on the CPU
     dryrun_res = phase_dryrun()
     print(json.dumps({"dryrun": dryrun_res}))
+
+    # 13. the LM dry run: olmo-1b and rwkv6-3b cells on a fake group of the
+    # (16, 16) mesh, and their kernels' calls at the rank's shapes
+    lm_res = phase_lm_dryrun(lm_cpu_job)
+    print(json.dumps({"lm_dryrun": lm_res}))
 
     table = []
     for name, label in TABLE_CASE.items():
@@ -4000,6 +4221,8 @@ def main(argv=None) -> int:
     for row in model_rows(model, serve_res, train_res, mesh_res):
         if row["name"] == "flash_attention":
             row["sass"] = sass
+        # phase 13's calls at the dry run's (16, 16) rank shapes
+        row["launches_lm_dryrun"] = lm_res["launches"][row["name"]]
         table.append(row)
     print(json.dumps({"kernels": table}))
     print(nvidia_smi())

@@ -195,3 +195,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     grid(plan, BH, Tq)[0])
     LAUNCHES[("flash_attention", "cuda")] += 1
     return (out, m, l) if stats else out
+
+
+# ---------------------------------------------------------------------------
+# the custom ops: K9 as an operator that fake tensors can trace
+# ---------------------------------------------------------------------------
+def _attention_op(q, k, v, causal, window, softcap):
+    """K9 on a CUDA tensor; on a CPU tensor its plain version."""
+    if q.device.type == "cuda":
+        return flash_attention(q, k, v, causal, window, softcap)
+    return flash_attention_plain(q, k, v, causal, window, softcap)
+
+
+def _attention_stats_op(q, k, v, causal, window, softcap):
+    if q.device.type == "cuda":
+        return flash_attention(q, k, v, causal, window, softcap, stats=True)
+    return flash_attention_plain(q, k, v, causal, window, softcap, stats=True)
+
+
+_ARGS = "Tensor q, Tensor k, Tensor v, bool causal, int? window, float? softcap"
+# `torch.ops.repro_torch.flash_attention` and `...flash_attention_stats`:
+# what `kernels/ops.py` calls on the card, and under fake tensors (the dry
+# run) only their fakes run, which allocate the outputs and nothing else
+attention_op = torch.library.custom_op(
+    "repro_torch::flash_attention", _attention_op, mutates_args=(),
+    schema=f"({_ARGS}) -> Tensor")
+attention_stats_op = torch.library.custom_op(
+    "repro_torch::flash_attention_stats", _attention_stats_op, mutates_args=(),
+    schema=f"({_ARGS}) -> (Tensor, Tensor, Tensor)")
+
+
+@attention_op.register_fake
+def _attention_fake(q, k, v, causal, window, softcap):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@attention_stats_op.register_fake
+def _attention_stats_fake(q, k, v, causal, window, softcap):
+    BH, Tq, _ = q.shape
+    m, l = (q.new_empty((BH, Tq), dtype=torch.float32) for _ in range(2))
+    return _attention_fake(q, k, v, causal, window, softcap), m, l

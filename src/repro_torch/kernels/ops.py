@@ -26,12 +26,16 @@ Three families of signatures, as in the JAX package:
 Every call goes through `_dispatch(op, backend)`, which adds one to the
 default metrics registry's ``kernel_dispatch{op=..., backend=...}`` counter
 and opens the range ``kops.<op>.<backend>`` (`obs/trace.py`).  The body of
-an ocean op on ``plain`` or ``cuda`` (the kernel's plain version, or the
-CUDA launch with its operands made contiguous) runs inside `_body`: under
-`tapped(tap)` that is ``tap(kernel, operands)``, through which the dry run
-(`launch/ocean_dryrun.py`) counts the kernel by its formula
-(`roofline/kernels.py`) and none of the ops inside, so a step costs the
-same on either backend.
+an op on ``plain`` or ``cuda`` (the kernel's plain version, or the CUDA
+launch with its operands made contiguous) runs inside `_body`: under
+`tapped(tap)` that is ``tap(kernel, operands)``, through which the dry runs
+(`launch/ocean_dryrun.py`, `launch/lm_dryrun.py`) count the kernel by its
+formula (`roofline/kernels.py`) and none of the ops inside, so a step costs
+the same on either backend.  On ``cuda`` K9 and K8 are called through their
+`torch.library` custom ops (``repro_torch::flash_attention``,
+``::flash_attention_stats``, ``::wkv6``); on fake tensors ``plain`` calls
+them too, so a traced step runs only their fakes, which allocate the
+outputs.
 ``LAUNCHES[(kernel, backend)]`` counts kernel calls by the name of the
 kernel (`KERNEL[op]`): the CUDA wrappers count their own launches, and
 `_dispatch` counts the ref and plain calls, so each call adds one to each
@@ -43,6 +47,7 @@ import contextlib
 import math
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import cell_transpose, column_solve, dispatch, flash_attention
 from . import horizontal_flux, matrix_free
@@ -81,6 +86,29 @@ def tapped(tap):
 def _body(kernel: str, *operands):
     """The kernel body's context: the innermost tap's, else none."""
     return _TAPS[-1](kernel, operands) if _TAPS else contextlib.nullcontext()
+
+
+# the weight a dry run's counter gives each op it sees (`counted`)
+_WEIGHTS: list = [1]
+
+
+@contextlib.contextmanager
+def counted(weight: int):
+    """Ops run inside count ``weight`` times in a dry run's trace: a loop
+    whose body is traced once for its trip count, as the JAX package's HLO
+    analysis counts a while loop (`models/mamba.py`), or 0 for work a
+    trace makes that the program does not.  Outside a trace it changes
+    nothing."""
+    _WEIGHTS.append(_WEIGHTS[-1] * weight)
+    try:
+        yield
+    finally:
+        _WEIGHTS.pop()
+
+
+def weight() -> int:
+    """The weight `counted` gives the ops run now."""
+    return _WEIGHTS[-1]
 
 
 @contextlib.contextmanager
@@ -269,6 +297,13 @@ def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (the dry run's): then even ``plain``
+    calls the custom op, whose fake allocates the outputs and nothing
+    more, so a traced step holds no (T, T) scores on either backend."""
+    return isinstance(t, FakeTensor)
+
+
 def wkv6(r, k, v, w, u, backend: dispatch.BackendLike = None):
     """RWKV6 recurrence: r, k, w (BH, T, K); v (BH, T, V); u (K,) or (H, K).
 
@@ -282,9 +317,10 @@ def wkv6(r, k, v, w, u, backend: dispatch.BackendLike = None):
     with _dispatch("wkv6", bk):
         if bk is Backend.REF:
             return _ref.wkv6(r, k, v, w, u)
-        if bk is Backend.PLAIN:
-            return _wkv6.wkv6_plain(r, k, v, w, u)
-        return _wkv6.wkv6(*(t.contiguous() for t in (r, k, v, w, u)))
+        with _body("wkv6", r, k, v, w, u):
+            if bk is Backend.PLAIN and not is_fake(r):
+                return _wkv6.wkv6_plain(r, k, v, w, u)
+            return _wkv6.wkv6_op(*(t.contiguous() for t in (r, k, v, w, u)))
 
 
 def attention(q, k, v, causal=True, window=None, softcap=None,
@@ -303,12 +339,7 @@ def attention(q, k, v, causal=True, window=None, softcap=None,
         if bk is Backend.REF:
             return _ref.chunked_attention(q, k, v, causal=causal,
                                           window=window, softcap=softcap)
-        if bk is Backend.PLAIN:
-            return flash_attention.flash_attention_plain(
-                q, k, v, causal=causal, window=window, softcap=softcap)
-        return flash_attention.flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-            window=window, softcap=softcap)
+        return _attention_body(q, k, v, causal, window, softcap, bk, False)
 
 
 def attention_with_stats(q, k, v, causal=True, window=None, softcap=None,
@@ -320,10 +351,19 @@ def attention_with_stats(q, k, v, causal=True, window=None, softcap=None,
         raise ValueError("attention_with_stats: backend 'ref' keeps no row "
                          "statistics ('plain' or 'cuda')")
     with _dispatch("attention", bk):
-        if bk is Backend.PLAIN:
+        return _attention_body(q, k, v, causal, window, softcap, bk, True)
+
+
+def _attention_body(q, k, v, causal, window, softcap, bk: Backend,
+                    stats: bool):
+    """K9's body on ``plain`` or ``cuda``: the plain version, or the custom
+    op (the kernel; its fake on fake tensors)."""
+    with _body("flash_attention", q, k, v, causal, window, softcap, stats):
+        if bk is Backend.PLAIN and not is_fake(q):
             return flash_attention.flash_attention_plain(
                 q, k, v, causal=causal, window=window, softcap=softcap,
-                stats=True)
-        return flash_attention.flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-            window=window, softcap=softcap, stats=True)
+                stats=stats)
+        op = (flash_attention.attention_stats_op if stats
+              else flash_attention.attention_op)
+        return op(q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                  window, softcap)

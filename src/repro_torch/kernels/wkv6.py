@@ -270,3 +270,25 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 # the plan's entries the C launcher takes, in its order
 LAUNCH_KEYS = ("rows", "cols", "block_cols", "threads", "tile", "stages",
                "smem", "bytes", "grid")
+
+
+# ---------------------------------------------------------------------------
+# the custom op: K8 as an operator that fake tensors can trace
+# ---------------------------------------------------------------------------
+def _wkv6_op(r, k, v, w, u):
+    """K8 on a CUDA tensor; on a CPU tensor its plain version."""
+    if v.device.type == "cuda":
+        return wkv6(r, k, v, w, u)
+    return wkv6_plain(r, k, v, w, u)
+
+
+# `torch.ops.repro_torch.wkv6`: what `kernels/ops.py` calls on the card; under
+# fake tensors (the dry run) only its fake runs, which allocates the output
+wkv6_op = torch.library.custom_op(
+    "repro_torch::wkv6", _wkv6_op, mutates_args=(),
+    schema="(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u) -> Tensor")
+
+
+@wkv6_op.register_fake
+def _wkv6_fake(r, k, v, w, u):
+    return torch.empty_like(v, memory_format=torch.contiguous_format)

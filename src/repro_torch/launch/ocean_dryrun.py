@@ -162,7 +162,8 @@ def _tensors(xs) -> list:
 
 class StepCounter(TorchDispatchMode):
     """Counts the bytes, flops and ops of the enclosed eager code into
-    `stats`; `kernel` is the ops' tap (`kernels/ops.py: tapped`)."""
+    `stats`, each op ``ops.weight()`` times (`kernels/ops.py: counted`);
+    `kernel` is the ops' tap (`kernels/ops.py: tapped`)."""
 
     def __init__(self):
         super().__init__()
@@ -171,15 +172,19 @@ class StepCounter(TorchDispatchMode):
         self.kernels: Dict[str, dict] = {}
         self._in_body = 0
 
+    def tag(self) -> str:
+        """The source tag of the bytes counted now."""
+        return source_tag()
+
     @contextlib.contextmanager
     def kernel(self, name: str, operands):
-        cost = rk.COST[name](*operands)
+        cost, w = rk.COST[name](*operands), ops.weight()
         k = self.kernels.setdefault(name, dict(calls=0, bytes=0, flops=0))
-        k["calls"] += 1
-        k["bytes"] += cost.bytes
-        k["flops"] += cost.flops
-        self.stats.add_bytes(cost.bytes, source_tag())
-        self.stats.flops += cost.flops
+        k["calls"] += w
+        k["bytes"] += w * cost.bytes
+        k["flops"] += w * cost.flops
+        self.stats.add_bytes(w * cost.bytes, self.tag())
+        self.stats.flops += w * cost.flops
         self._in_body += 1
         try:
             yield
@@ -192,16 +197,24 @@ class StepCounter(TorchDispatchMode):
         if (self._in_body or func.namespace != "aten" or func.is_view
                 or func.overloadpacket in _NO_TRAFFIC):
             return out
-        self.n_ops += 1
-        self.stats.add_bytes(rk.nbytes(*_tensors((args, kwargs)),
-                                       *_tensors(out)), source_tag())
+        self.count(func, args, kwargs, out, ops.weight())
+        return out
+
+    def count(self, func, args, kwargs, out, w: int) -> None:
+        """Count one aten op ``w`` times: its operand and result bytes, its
+        flops by torch's formulas, and an operation an output element when
+        it is pointwise."""
+        if not w:
+            return
+        self.n_ops += w
+        self.stats.add_bytes(w * rk.nbytes(*_tensors((args, kwargs)),
+                                           *_tensors(out)), self.tag())
         packet = func.overloadpacket
         if packet in flop_registry:
-            self.stats.flops += flop_registry[packet](*args, **kwargs,
-                                                      out_val=out)
+            self.stats.flops += w * flop_registry[packet](*args, **kwargs,
+                                                          out_val=out)
         if torch.Tag.pointwise in func.tags:
-            self.stats.flops += sum(x.numel() for x in _tensors(out))
-        return out
+            self.stats.flops += w * sum(x.numel() for x in _tensors(out))
 
 
 @dataclasses.dataclass
@@ -218,6 +231,7 @@ class StepTrace:
     step_ms: Optional[list] = None
     card: Optional[dict] = None
     state: Optional[stepper.OceanState] = None   # after the counted step
+    hlo_extra: dict = dataclasses.field(default_factory=dict)  # more `hlo` keys
 
 
 def card_info() -> Optional[dict]:

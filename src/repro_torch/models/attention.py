@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from ..kernels import dispatch, ops
+from ..obs.trace import annotate
 
 NEG = -1e30
 Q_BLOCK, K_BLOCK = 512, 1024      # flash_attention_xla's q_block, k_block
@@ -145,5 +146,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, m, l = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, m, l, dout, *ctx.opts)
+        with annotate("attention.backward"):
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, m, l, dout,
+                                             *ctx.opts)
         return dq, dk, dv, None, None, None, None

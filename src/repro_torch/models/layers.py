@@ -24,7 +24,9 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops
 from ..launch.mesh import is_dtensor
+from ..obs.trace import annotate
 from .attention import flash_attention
 
 
@@ -61,6 +63,61 @@ class Draw:
         """``x`` repeated over the leading axes."""
         x = x.to(self.device)
         return x.expand(self.lead + tuple(x.shape)).clone()
+
+
+# --- a chunked loop in a dry run's trace ----------------------------------------
+def traced_chunks(body, n: int, chunk: int, state, *seqs_and_const):
+    """A chunked scan on fake tensors (a dry run's trace,
+    `launch/lm_dryrun.py`), where a dispatch a step and layer would cost
+    too much: ``body(state, *chunk's slices of seqs, const) -> (state,
+    out)`` traced on the first of the n chunks and counted n times
+    (`ops.counted`), its output repeated over the n chunks, counting
+    nothing.  Under grad the backward recomputes the chunk and takes its
+    gradient, counted n times, as each chunk's checkpoint does, and adds
+    each input's gradient n - 1 times, as autograd sums the chunks'.
+    Returns out for all n chunks (along dim 1)."""
+    return _Repeated.apply(_TracedChunks.apply(body, n, chunk, state,
+                                               *seqs_and_const), n)
+
+
+class _TracedChunks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, body, n, chunk, state, *seqs_and_const):
+        ctx.body, ctx.n, ctx.chunk = body, n, chunk
+        ctx.save_for_backward(state, *seqs_and_const)
+        *seqs, const = seqs_and_const
+        with ops.counted(n):
+            return body(state, *(z[:, :chunk] for z in seqs), const)[1]
+
+    @staticmethod
+    def backward(ctx, gout):
+        with ops.counted(ctx.n), torch.enable_grad():
+            xs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            state, *seqs, const = xs
+            _, out = ctx.body(state, *(z[:, :ctx.chunk] for z in seqs), const)
+            grads = torch.autograd.grad(out, xs, gout, allow_unused=True)
+        with ops.counted(ctx.n - 1):
+            for g in grads[1:]:
+                if g is not None:
+                    g.add(g)
+        return (None, None, None, *grads)
+
+
+class _Repeated(torch.autograd.Function):
+    """y (B, c, ...) repeated n times along dim 1, counting nothing either
+    way."""
+
+    @staticmethod
+    def forward(ctx, y, n):
+        ctx.n = n
+        with ops.counted(0):
+            return y.repeat(1, n, *([1] * (y.dim() - 2)))
+
+    @staticmethod
+    def backward(ctx, g):
+        with ops.counted(0):
+            B, T, *rest = g.shape
+            return g.reshape(B, ctx.n, T // ctx.n, *rest).sum(dim=1), None
 
 
 # --- norms ---------------------------------------------------------------------
@@ -173,9 +230,11 @@ def embed_lookup(table, tokens):
     tokens = tokens if is_dtensor(tokens) else replicated_like(tokens, table)
     pl, partial = _rows_of(tokens)
     whole = (Replicate(),) * table.device_mesh.ndim
-    return local_map(lambda t, i: t[i], out_placements=(pl,),
-                     in_placements=(whole, pl), in_grad_placements=(partial, pl),
-                     redistribute_inputs=True)(table, tokens)
+    with annotate("layers.embed_lookup"):
+        return local_map(lambda t, i: t[i], out_placements=(pl,),
+                         in_placements=(whole, pl),
+                         in_grad_placements=(partial, pl),
+                         redistribute_inputs=True)(table, tokens)
 
 
 def token_nll(lf, labels):
@@ -191,8 +250,9 @@ def token_nll(lf, labels):
     from torch.distributed.tensor.experimental import local_map
     labels = labels if is_dtensor(labels) else replicated_like(labels, lf)
     pl, _ = _rows_of(labels)
-    return local_map(nll, out_placements=(pl,), in_placements=(pl, pl),
-                     redistribute_inputs=True)(lf, labels)
+    with annotate("layers.token_nll"):
+        return local_map(nll, out_placements=(pl,), in_placements=(pl, pl),
+                         redistribute_inputs=True)(lf, labels)
 
 
 def gather_fsdp(p):
@@ -259,6 +319,22 @@ def _repeat_kv(k, n_heads):
     return torch.repeat_interleave(k, n_heads // k.shape[2], dim=2)
 
 
+def _pad_heads(z, n: int):
+    """(B, H, T, d) -> (B, H + n, T, d), the new heads zero.  On a DTensor
+    (whose heads are whole: a head count that the model axis does not
+    divide is not split) each rank pads its own under `local_map`."""
+    pad = lambda t: F.pad(t, (0, 0, 0, 0, 0, n))
+    if not is_dtensor(z):
+        return pad(z)
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(z.placements)
+    if Shard(1) in pl:
+        raise ValueError(f"padding split heads ({pl})")
+    return local_map(pad, out_placements=(pl,), in_placements=(pl,),
+                     redistribute_inputs=True)(z)
+
+
 def attention(p, x, cfg: AttnCfg, positions: torch.Tensor, backend=None,
               head_sharding=None):
     """Full (train/prefill) attention. x (B, T, D) -> (B, T, D).
@@ -282,8 +358,7 @@ def attention(p, x, cfg: AttnCfg, positions: torch.Tensor, backend=None,
     Hp = cfg.pad_heads_to
     padded = Hp is not None and Hp > cfg.n_heads
     if padded:
-        qh, kh, vh = (F.pad(z, (0, 0, 0, 0, 0, Hp - cfg.n_heads))
-                      for z in (qh, kh, vh))
+        qh, kh, vh = (_pad_heads(z, Hp - cfg.n_heads) for z in (qh, kh, vh))
     qh, kh, vh = (pin(z, head_sharding) for z in (qh, kh, vh))
 
     def core(q_, k_, v_):
@@ -306,7 +381,8 @@ def decode_attention(p, x, cfg: AttnCfg, kv_cache, pos: int):
     x: (B, 1, D); kv_cache: dict(k, v: (B, Tmax, Kv, hd)); pos: the token's
     index.  Writes the token's k and v into the cache in place and returns
     (out (B, 1, D), the cache).  A masked softmax over the whole cache
-    (``ids <= pos`` and the window), grouped heads without repeating KV."""
+    (``ids <= pos`` and the window), grouped heads without repeating KV.
+    On a DTensor cache, `_decode_attention_sharded`."""
     B, _, D = x.shape
     pos = int(pos)
     q = torch.einsum("btd,dhk->bthk", x, p["wq"])
@@ -314,26 +390,105 @@ def decode_attention(p, x, cfg: AttnCfg, kv_cache, pos: int):
     v_new = torch.einsum("btd,dhk->bthk", x, p["wv"])
     cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta,
                           torch.tensor([pos], device=x.device))
+    cos, sin = replicated_like(cos, x), replicated_like(sin, x)
     q = apply_rope(q, cos, sin)
     k_new = apply_rope(k_new, cos, sin)
     kc, vc = kv_cache["k"], kv_cache["v"]
-    kc[:, pos] = k_new[:, 0].to(kc.dtype)
-    vc[:, pos] = v_new[:, 0].to(vc.dtype)
-    ids = torch.arange(kc.shape[1], device=x.device)
+    if is_dtensor(kc):
+        out = _decode_attention_sharded(q, k_new, v_new, kc, vc, cfg, pos)
+    else:
+        kc[:, pos] = k_new[:, 0].to(kc.dtype)
+        vc[:, pos] = v_new[:, 0].to(vc.dtype)
+        ids = torch.arange(kc.shape[1], device=x.device)
+        m, l, acc = _decode_partial(q[:, 0], kc, vc, ids, cfg, pos)
+        out = acc / l
+    out = out.reshape(B, cfg.n_heads, cfg.head_dim)
+    out = torch.einsum("bhk,hkd->bd", out.to(x.dtype), p["wo"])
+    return out[:, None, :], kv_cache
+
+
+def _decode_partial(q, kc, vc, ids, cfg: AttnCfg, pos: int):
+    """The softmax of q (B, H, hd) over the keys ``ids`` of the cache
+    kc, vc (B, t, Kv, hd), unnormalised: (row max m, normaliser l, output
+    sum acc), float32, m and l (B, Kv, rep, 1), acc (B, Kv, rep, hd); the
+    keys past ``pos`` and outside the window masked."""
+    B = q.shape[0]
     valid = ids <= pos
     if cfg.window is not None:
         valid = valid & (ids > pos - cfg.window)
     rep = cfg.n_heads // cfg.n_kv
-    qg = q[:, 0].reshape(B, cfg.n_kv, rep, cfg.head_dim).float()
+    qg = q.reshape(B, cfg.n_kv, rep, cfg.head_dim).float()
     s = torch.einsum("bgrk,btgk->bgrt", qg, kc.float()) / (cfg.head_dim ** 0.5)
     if cfg.softcap is not None:
         s = cfg.softcap * torch.tanh(s / cfg.softcap)
     s = torch.where(valid[None, None, None, :], s, -1e30)
-    pattn = torch.softmax(s, dim=-1)
-    out = torch.einsum("bgrt,btgk->bgrk", pattn, vc.float())
-    out = out.reshape(B, cfg.n_heads, cfg.head_dim)
-    out = torch.einsum("bhk,hkd->bd", out.to(x.dtype), p["wo"])
-    return out[:, None, :], kv_cache
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    return m, e.sum(dim=-1, keepdim=True), torch.einsum("bgrt,btgk->bgrk", e,
+                                                        vc.float())
+
+
+def _decode_attention_sharded(q, k_new, v_new, kc, vc, cfg: AttnCfg, pos: int):
+    """Decode attention on DTensors, flash-decoding's: q, k_new, v_new (B,
+    1, H or Kv, hd); kc, vc (B, Tmax, Kv, hd) DTensors, each rank holding
+    its batch rows and a block of the sequence.  Each rank takes its rows
+    of q and the token's k and v with every head, writes the token into
+    its block of the cache in place when the block holds ``pos``, and
+    attends over its keys; the partial softmaxes are combined by
+    all-reduces over the mesh dims that split the sequence (max, then the
+    sums).  Returns (B, H, hd) float32 at the cache's batch placements."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = kc.device_mesh
+    rows = tuple(Shard(0) if pl == Shard(0) else Replicate()
+                 for pl in kc.placements)
+    seq_dims = [d for d, pl in enumerate(kc.placements) if pl == Shard(1)]
+    ql, kl_new, vl_new = (z.redistribute(mesh, rows).to_local()
+                          for z in (q, k_new, v_new))
+    kl, vl = kc.to_local(), vc.to_local()
+    t0 = shard_offset(kc.shape[1], mesh, kc.placements, 1)
+    if t0 <= pos < t0 + kl.shape[1]:
+        kl[:, pos - t0] = kl_new[:, 0].to(kl.dtype)
+        vl[:, pos - t0] = vl_new[:, 0].to(vl.dtype)
+    ids = t0 + torch.arange(kl.shape[1], device=kl.device)
+    m, l, acc = _decode_partial(ql[:, 0], kl, vl, ids, cfg, pos)
+    wait = lambda t: t.wait() if hasattr(t, "wait") else t
+    top = m
+    for d in seq_dims:
+        top = wait(funcol.all_reduce(top, "max", (mesh, d)))
+    scale = torch.exp(m - top)
+    l, acc = l * scale, acc * scale
+    for d in seq_dims:
+        l = wait(funcol.all_reduce(l, "sum", (mesh, d)))
+        acc = wait(funcol.all_reduce(acc, "sum", (mesh, d)))
+    out = acc / l
+    B = kc.shape[0]
+    shape = (B,) + tuple(out.shape[1:])
+    return DTensor.from_local(out, mesh, rows, run_check=False, shape=shape,
+                              stride=contiguous_stride(shape))
+
+
+def shard_offset(size: int, mesh, placements, dim: int) -> int:
+    """The global index of the first element along ``dim`` (of ``size``)
+    of this rank's shard at ``placements``: DTensor's chunks (ceil(n / k)
+    each, the last ones short or empty), nested in the mesh's dim order."""
+    from torch.distributed.tensor import Shard
+    coord, off = mesh.get_coordinate(), 0
+    for d, pl in enumerate(placements):
+        if pl == Shard(dim):
+            n = -(-size // mesh.size(d))
+            first = min(coord[d] * n, size)
+            off, size = off + first, min(n, size - first)
+    return off
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
+    out, n = [], 1
+    for size in reversed(shape):
+        out.append(n)
+        n *= size
+    return tuple(reversed(out))
 
 
 # --- MLPs ------------------------------------------------------------------------

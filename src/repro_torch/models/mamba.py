@@ -13,7 +13,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .layers import Draw, is_dtensor
+from ..kernels import ops
+from ..obs.trace import annotate
+from .layers import Draw, is_dtensor, traced_chunks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,9 +71,18 @@ def _ssm_scan(u, dt, B, C, A, D, chunk: int = 32):
     Under grad each chunk runs under `torch.utils.checkpoint`, as JAX's is
     `jax.checkpoint`'ed: the backward keeps one (Bt, di, N) state a chunk
     and recomputes inside it.  Each step's arithmetic is the same either
-    way."""
+    way.  On fake tensors (`launch/lm_dryrun.py`) one chunk stands for all
+    (`kernels/ops.py: counted`)."""
     Bt, T, di = u.shape
     h = u.new_zeros((Bt, di, A.shape[1]), dtype=torch.float32)
+    n = T // chunk
+    if ops.is_fake(u) and n > 1 and T % chunk == 0:
+        # a dry run's trace (fake tensors): the per-token loop costs a
+        # dispatch a token and layer, so the first chunk is traced and
+        # counted for all n, forward and backward, and the output's other
+        # chunks are copies that count nothing
+        return traced_chunks(_scan_chunk, n, chunk, h, u, dt, B, C, A) \
+            + D[None, None] * u
     ys = []
     for c0 in range(0, T, chunk):
         xs = [z[:, c0:c0 + chunk] for z in (u, dt, B, C)]
@@ -113,14 +124,20 @@ def _ssm(u, *weights):
     whole = (Replicate(),) * u.device_mesh.ndim
     partial = tuple(Partial() if q == Shard(0) else Replicate() for q in pl)
     n = len(weights)
-    return local_map(_ssm_rows, out_placements=(pl,),
-                     in_placements=(pl,) + (whole,) * n,
-                     in_grad_placements=(pl,) + (partial,) * n,
-                     redistribute_inputs=True)(u, *weights)
+    with annotate("mamba._ssm"):
+        return local_map(_ssm_rows, out_placements=(pl,),
+                         in_placements=(pl,) + (whole,) * n,
+                         in_grad_placements=(pl,) + (partial,) * n,
+                         redistribute_inputs=True)(u, *weights)
 
 
 def mamba_apply(p, x, cfg: MambaCfg):
     """Train/prefill: x (B, T, D) -> (B, T, D)."""
+    with annotate("mamba"):
+        return _mamba_apply(p, x, cfg)
+
+
+def _mamba_apply(p, x, cfg: MambaCfg):
     B, T, D = x.shape
     di = cfg.d_inner(D)
     xi, z = (x @ p["w_in"]).chunk(2, dim=-1)             # (B, T, di) each
@@ -133,21 +150,45 @@ def mamba_apply(p, x, cfg: MambaCfg):
     return (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
 
 
+def _ssm_step_rows(u, h, w_xdt, w_dt, dt_bias, w_B, w_C, A_log, D):
+    """One decode step of the selective SSM: float32 u (B, di), state h
+    (B, di, N) -> (y (B, di), the new state)."""
+    dt, Bm, Cm = _dt_b_c(dict(w_xdt=w_xdt, w_dt=w_dt, dt_bias=dt_bias,
+                              w_B=w_B, w_C=w_C), u)
+    A = -torch.exp(A_log)
+    dA = torch.exp(dt[..., None] * A[None])               # (B, di, N)
+    h = dA * h + (dt * u)[..., None] * Bm[:, None, :]
+    return torch.einsum("bdn,bn->bd", h, Cm) + D[None] * u, h
+
+
+def _ssm_step(u, h, *weights):
+    """`_ssm_step_rows`; on DTensors under `local_map` as `_ssm`, each rank
+    stepping its own batch rows over every channel (the state's channels
+    gathered) with whole weights."""
+    if not is_dtensor(u):
+        return _ssm_step_rows(u, h, *weights)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(q if q == Shard(0) else Replicate() for q in u.placements)
+    whole = (Replicate(),) * u.device_mesh.ndim
+    with annotate("mamba._ssm"):
+        return local_map(_ssm_step_rows, out_placements=(pl, pl),
+                         in_placements=(pl, pl) + (whole,) * len(weights),
+                         redistribute_inputs=True)(u, h, *weights)
+
+
 def mamba_decode(p, x, state, cfg: MambaCfg):
     """Single-token decode. x (B, 1, D); state = (conv_state (B, d_conv-1, di),
     ssm_state (B, di, N)). Returns (out, new_state)."""
-    xi, z = (x[:, 0] @ p["w_in"]).chunk(2, dim=-1)       # (B, di)
-    conv_state, h = state
-    xc = torch.cat([conv_state, xi[:, None]], dim=1)     # (B, d_conv, di)
-    conv = (xc * p["conv_w"][None]).sum(dim=1) + p["conv_b"]
-    u = F.silu(conv).float()                              # (B, di)
-    dt, Bm, Cm = _dt_b_c(p, u)
-    A = -torch.exp(p["A_log"])
-    dA = torch.exp(dt[..., None] * A[None])               # (B, di, N)
-    h = dA * h + (dt * u)[..., None] * Bm[:, None, :]
-    y = torch.einsum("bdn,bn->bd", h, Cm) + p["D"][None] * u
-    out = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
-    return out[:, None], (xc[:, 1:], h)
+    with annotate("mamba"):
+        xi, z = (x[:, 0] @ p["w_in"]).chunk(2, dim=-1)       # (B, di)
+        conv_state, h = state
+        xc = torch.cat([conv_state, xi[:, None]], dim=1)     # (B, d_conv, di)
+        conv = (xc * p["conv_w"][None]).sum(dim=1) + p["conv_b"]
+        u = F.silu(conv).float()                              # (B, di)
+        y, h = _ssm_step(u, h, *(p[k] for k in _SSM_KEYS))
+        out = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+        return out[:, None], (xc[:, 1:], h)
 
 
 def init_mamba_state(batch, d_model, cfg: MambaCfg, dtype=torch.bfloat16,

@@ -33,10 +33,18 @@ residual stream between sub-layers), `act_inner_sharding` (a sub-layer's
 input), `attn_head_sharding` (q, k, v at (B, H, T, d), and the placements
 of the attention core), `head_sharding` (RWKV's r, k, v, w at (B, H, T,
 K), and the placements of the WKV core; JAX pins them merged, (B*H, T,
-K)), `moe_hidden_sharding` (the MoE dispatch in decode; decode does not
-run on DTensors yet, so `moe.moe_apply` alone has been run with it on a
-mesh) and `pad_heads_to` (`AttnCfg.pad_heads_to`).  On one device they
-change nothing.
+K)), `moe_hidden_sharding` (the MoE dispatch in decode) and `pad_heads_to`
+(`AttnCfg.pad_heads_to`).  On one device they change nothing.
+
+Decode runs on a mesh too, on DTensor parameters and a cache laid out by
+`sharding.batch_pspecs` (the batch over the data-parallel axes, the KV
+sequence over "model", or over every axis at batch 1): each super-block's
+slot is written in place, the token's K and V only by the rank whose
+sequence shard holds ``pos`` (`layers.decode_attention`), and the
+attention over a sequence-sharded cache is flash-decoding's: each rank's
+partial softmax over its keys, combined by all-reduces of the row max,
+the normaliser and the output.  The mamba step runs under `local_map`
+as its scan does.
 
 Each sub-layer first gathers its weights' FSDP shards (`layers.
 gather_fsdp`, FSDP's gather before use; the tensor-parallel shards stay).
@@ -119,14 +127,15 @@ def _index(tree, s: int):
 
 def _store(dst, src) -> None:
     """Copy a super-block's new state into its slot of the stacked cache;
-    a tensor that is already the slot (the KV cache) is left as it is."""
+    a tensor that is already the slot (the KV cache, written in place) is
+    left as it is."""
     if isinstance(dst, dict):
         for k in dst:
             _store(dst[k], src[k])
     elif isinstance(dst, tuple):
         for d, s in zip(dst, src):
             _store(d, s)
-    elif dst.data_ptr() != src.data_ptr():
+    elif dst is not src:
         dst.copy_(src)
 
 
@@ -349,6 +358,7 @@ class Model:
 
     def _decode_sub(self, p, x, cch, sub: SubLayer, pos):
         a = self.arch
+        p = layers.gather_fsdp(p)
         h = layers.norm(x, p["ln1"], a.norm)
         if sub.mixer == "rwkv":
             tm, (tshift, wkv_s) = rwkv.time_mix(
@@ -379,7 +389,7 @@ class Model:
 
         The cache is updated in place (each super-block's slot of the
         stacked tensors) and returned."""
-        x = self._scale_embed(params["embed"][tokens])
+        x = self._scale_embed(layers.embed_lookup(params["embed"], tokens))
         for s in range(self.n_super):
             for i, sub in enumerate(self.program):
                 slot = _index(cache[f"sub{i}"], s)

@@ -12,6 +12,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ..obs.trace import annotate
 from .layers import Draw, is_dtensor, pin
 
 
@@ -70,9 +71,67 @@ def _route(probs, k: int, n_experts: int):
     from torch.distributed.tensor.experimental import local_map
     last = probs.dim() - 1
     pl = tuple(Replicate() if q == Shard(last) else q for q in probs.placements)
-    return local_map(lambda pr: _route_rows(pr, k, n_experts),
-                     out_placements=(pl, pl), in_placements=(pl,),
-                     redistribute_inputs=True)(probs)
+    with annotate("moe._route"):
+        return local_map(lambda pr: _route_rows(pr, k, n_experts),
+                         out_placements=(pl, pl), in_placements=(pl,),
+                         redistribute_inputs=True)(probs)
+
+
+def _expert_in(x, w):
+    """"btd,edf->btef": x (B, T, D) through every expert's (D, F) weight.
+    On DTensors under `local_map` (DTensor's einsum flattens (e, f), which
+    fails when f is split or e unevenly): each rank's rows of x, D whole,
+    against its slice of the experts (E) or of their hidden dim (F); no
+    communication.  The gradients: x's a partial sum over the mesh dims
+    that split w, w's over those that split x's rows."""
+    if not is_dtensor(x):
+        return torch.einsum("btd,edf->btef", x, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    w_pl = tuple(q if q in (Shard(0), Shard(2)) else Replicate()
+                 for q in w.placements)
+    x_pl = tuple(q if q in (Shard(0), Shard(1)) and wq == Replicate()
+                 else Replicate() for q, wq in zip(x.placements, w_pl))
+    out = tuple(Shard(2) if wq == Shard(0) else Shard(3) if wq == Shard(2)
+                else xq for xq, wq in zip(x_pl, w_pl))
+    x_grad = tuple(Partial() if wq != Replicate() else xq
+                   for xq, wq in zip(x_pl, w_pl))
+    w_grad = tuple(Partial() if xq != Replicate() else wq
+                   for xq, wq in zip(x_pl, w_pl))
+    return local_map(lambda x_, w_: torch.einsum("btd,edf->btef", x_, w_),
+                     out_placements=(out,), in_placements=(x_pl, w_pl),
+                     in_grad_placements=(x_grad, w_grad),
+                     redistribute_inputs=True)(x, w)
+
+
+def _expert_out(h, w_out, comb):
+    """"btef,efd,bte->btd": the experts' outputs (E, F, D) weighted by
+    comb (B, T, E) and summed.  On DTensors under `local_map` at h's
+    placements: w_out and comb cut to each rank's experts and hidden
+    units, the sum a partial one over the mesh dims that split them (and
+    w_out's gradient over those that split the rows, comb's over those
+    that split F)."""
+    eq = "btef,efd,bte->btd"
+    if not is_dtensor(h):
+        return torch.einsum(eq, h, w_out, comb)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    h_pl = tuple(h.placements)
+    w_pl = tuple(Shard(0) if q == Shard(2) else Shard(1) if q == Shard(3)
+                 else Replicate() for q in h_pl)
+    c_pl = tuple(q if q in (Shard(0), Shard(1), Shard(2)) else Replicate()
+                 for q in h_pl)
+    out = tuple(q if q in (Shard(0), Shard(1)) else
+                Partial() if q in (Shard(2), Shard(3)) else Replicate()
+                for q in h_pl)
+    rows = (Shard(0), Shard(1))
+    w_grad = tuple(Partial() if q in rows else wq for q, wq in zip(h_pl, w_pl))
+    c_grad = tuple(Partial() if q == Shard(3) else cq
+                   for q, cq in zip(h_pl, c_pl))
+    return local_map(lambda h_, w_, c_: torch.einsum(eq, h_, w_, c_),
+                     out_placements=(out,), in_placements=(h_pl, w_pl, c_pl),
+                     in_grad_placements=(h_pl, w_grad, c_grad),
+                     redistribute_inputs=True)(h, w_out, comb)
 
 
 def moe_apply(p, x, cfg: MoeCfg, hidden_sharding=None):
@@ -81,16 +140,21 @@ def moe_apply(p, x, cfg: MoeCfg, hidden_sharding=None):
     hidden_sharding: optional (DeviceMesh, placements) for the (B, T, E,
     F) dispatch intermediates, applied to DTensors (JAX pins them for
     single-token decode, keeping the expert weights 2D-sharded)."""
+    with annotate("moe_apply"):
+        return _moe_apply(p, x, cfg, hidden_sharding)
+
+
+def _moe_apply(p, x, cfg: MoeCfg, hidden_sharding):
     logits = x.float() @ p["router"]                      # (B, T, E)
     probs = torch.softmax(logits, dim=-1)
     comb, picked = _route(probs, cfg.top_k, cfg.n_experts)
 
     # dense dispatch: every expert sees every token, weighted combine
-    h_gate = torch.einsum("btd,edf->btef", x, p["w_gate"])
-    h_in = torch.einsum("btd,edf->btef", x, p["w_in"])
+    h_gate = _expert_in(x, p["w_gate"])
+    h_in = _expert_in(x, p["w_in"])
     h_gate, h_in = pin(h_gate, hidden_sharding), pin(h_in, hidden_sharding)
     h = F.silu(h_gate) * h_in
-    out = torch.einsum("btef,efd,bte->btd", h, p["w_out"], comb.to(h.dtype))
+    out = _expert_out(h, p["w_out"], comb.to(h.dtype))
 
     if cfg.n_shared > 0:
         s = p["shared"]

@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
-from .layers import Draw, core_placements, is_dtensor, pin
+from ..obs.trace import annotate
+from .layers import Draw, core_placements, is_dtensor, pin, traced_chunks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,12 +197,20 @@ def wkv_chunked(r, k, v, w, u, S0=None, chunk: int = 64):
     Under grad each chunk's body is checkpointed.
 
     r, k, w (BH, T, K); v (BH, T, V); u (BH, K) or (K,); S0 (BH, K, V) or
-    None (zeros).  Returns (out (BH, T, V), S_T), float32."""
+    None (zeros).  Returns (out (BH, T, V), S_T), float32.  On fake
+    tensors (`launch/lm_dryrun.py`) one chunk stands for all
+    (`layers.traced_chunks`)."""
     BH, T, K = r.shape
     C = min(chunk, T)
     uh = u.float() if u.dim() == 2 else u.float()[None].expand(BH, K)
     S = (r.new_zeros((BH, K, v.shape[-1]), dtype=torch.float32)
          if S0 is None else S0.float())
+    n = T // C
+    if ops.is_fake(r) and n > 1 and T % C == 0:
+        # a dry run's trace: one chunk for all n (`layers.traced_chunks`);
+        # the final state, which its caller drops, is S0's placeholder
+        return traced_chunks(_wkv_chunk, n, C, S, *(z.float() for z in
+                                                    (r, k, v, w)), uh), S
     outs = []
     for c0 in range(0, T, C):
         xs = [z[:, c0:c0 + C].float() for z in (r, k, v, w)]
@@ -226,7 +235,7 @@ class WKV6(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        with torch.enable_grad():
+        with torch.enable_grad(), annotate("rwkv.wkv_backward"):
             xs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             r, k, v, w, u = xs
             uh = u.repeat(r.shape[0] // u.shape[0], 1) if u.dim() == 2 else u

@@ -131,20 +131,29 @@ def _update_inplace(upd, g, m, v, p) -> None:
 
 
 def _update_sharded(leaves, upd, params, state: AdamWState, step, inplace):
-    """`update` on DTensor leaves: each gradient redistributed to its
-    parameter's placements, then ``upd`` on the local shards."""
+    """`update` on DTensor leaves: each gradient, and the parameter where
+    the moments are split further (ZeRO-1, `sharding.opt_pspecs`),
+    redistributed to the moments' placements, then ``upd`` on the local
+    shards; such a parameter's new value is gathered back to its own
+    placements."""
     from torch.distributed.tensor import DTensor
     outs = []
     for g, m, v, p in leaves:
-        g = g.redistribute(p.device_mesh, p.placements)
-        local = [t.to_local() for t in (g, m, v, p)]
+        mesh, pl = m.device_mesh, tuple(m.placements)
+        g = g.redistribute(mesh, pl)
+        pm = p if tuple(p.placements) == pl else p.redistribute(mesh, pl)
+        local = [t.to_local() for t in (g, m, v, pm)]
         if inplace:
             _update_inplace(upd, *local)
+            if pm is not p:
+                p.to_local().copy_(pm.redistribute(mesh, p.placements)
+                                   .to_local())
             continue
         p1, m1, v1 = upd(*local)
-        outs.append([DTensor.from_local(t, p.device_mesh, p.placements,
-                                        shape=p.shape, stride=p.stride())
+        outs.append([DTensor.from_local(t, mesh, pl, shape=p.shape,
+                                        stride=p.stride())
                      for t in (p1, m1, v1)])
+        outs[-1][0] = outs[-1][0].redistribute(mesh, p.placements)
     if inplace:
         return params, AdamWState(m=state.m, v=state.v, step=step)
     new = [tree.unflatten(params, [o[i] for o in outs]) for i in range(3)]

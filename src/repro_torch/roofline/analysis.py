@@ -14,12 +14,10 @@ record.  The machine is an argument:
 
 (per rank, as JAX's; the totals in `Roofline` are over ``chips``).
 
-`HloStats.add`, `model_flops_estimate`, `peak_bandwidth` and `CPU_MEM_BW`
-have no caller in the package yet: they are for the dry run's LM cells
-(`lower_cell` of `launch/dryrun.py`, still to be ported, ROADMAP.md A1),
-which sum a step's sub-programs with `add` and set a cell's useful FLOPs
-by `model_flops_estimate`.  Until then only `tests/test_torch_roofline.py`
-calls them, holding each to the JAX package's.
+`model_flops_estimate` sets an LM cell's useful FLOPs
+(`launch/lm_dryrun.py`).  `HloStats.add`, `peak_bandwidth` and
+`CPU_MEM_BW` have no caller in the package (the port traces a step as one
+program); `tests/test_torch_roofline.py` holds each to the JAX package's.
 """
 from __future__ import annotations
 

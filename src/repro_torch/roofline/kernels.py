@@ -1,4 +1,4 @@
-"""Bytes and operations of each ocean kernel's call, from its operands.
+"""Bytes and operations of each kernel's call, from its operands.
 
 One function a kernel, taking the operands its body takes (`kernels/ops.py`
 hands them over; `chip_smoke.py` bounds each kernel by them).  Bytes are
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -81,7 +82,44 @@ def cell_to_soa(cells: torch.Tensor, nt: int) -> Cost:
     return Cost(2 * cells.shape[1] * nt * cells.element_size(), 0)
 
 
+def attention_pairs(Tq: int, Tk: int, causal: bool,
+                    window: Optional[int]) -> int:
+    """Unmasked (query, key) pairs of one head: query i sees the keys j <
+    Tk with j <= i (causal) and j > i - window.  (Plain integers: the dry
+    run computes this while fake tensors are active.)"""
+    i = np.arange(Tq, dtype=np.int64)
+    hi = np.minimum(i, Tk - 1) if causal else np.full(Tq, Tk - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(Tq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    stats: bool = False) -> Cost:
+    """K9: q (BH, Tq, d), k and v (BH, Tk, d) read, the output (q's shape)
+    and with ``stats`` m and l (float32 (BH, Tq)) written; 4 d operations
+    an unmasked (query, key) pair (the two products), the window respected
+    and the key tiles the kernel skips not counted."""
+    BH, Tq, d = q.shape
+    out = nbytes(q) + (2 * BH * Tq * 4 if stats else 0)
+    return Cost(nbytes(q, k, v) + out,
+                4 * d * BH * attention_pairs(Tq, k.shape[1], causal, window))
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor) -> Cost:
+    """K8: r, k, w (BH, T, K), v (BH, T, V) and u read, the output (v's
+    shape) written; 5 K V + 3 K + 2 V operations a token and head (k v,
+    r S and w S + k v an element of S; the bonus sum r u k and its
+    product with v)."""
+    BH, T, K = r.shape
+    V = v.shape[-1]
+    return Cost(nbytes(r, k, v, w, u, v), (5 * K * V + 3 * K + 2 * V) * T * BH)
+
+
 # the formula of each kernel, by the name `kernels/ops.py` counts it under
 COST = {"solve_r": solve_r, "solve_w": solve_w, "block_thomas": block_thomas,
         "lateral_flux": lateral_flux, "tridiag": tridiag,
-        "soa_to_cell": soa_to_cell, "cell_to_soa": cell_to_soa}
+        "soa_to_cell": soa_to_cell, "cell_to_soa": cell_to_soa,
+        "flash_attention": flash_attention, "wkv6": wkv6}

@@ -19,7 +19,8 @@ fake group of (2, 4) = 8 ranks, at halo exchange periods 0 and 2:
   * the peak is positive, the dominant term named, the kernels' bytes
     tagged by their source;
   * `run_ocean_cells` writes a record, skips it when cached, and `rederive`
-    over the directory leaves it equal; `main` without ``--ocean`` exits 2;
+    over the directory leaves it equal (the LM cells' CLI:
+    `tests/test_torch_lm_dryrun.py`);
   * the fake group's transport moves no data: a shift returns a copy;
   * `return_state` gives the counted step's state, on either backend.
 """
@@ -216,13 +217,6 @@ def test_run_ocean_cells_writes_skips_and_rederives(tmp_path, monkeypatch,
     assert [t for t, _ in dryrun.run_ocean_cells(
         specs, str(tmp_path / "x"), ["no-such-cell"], device="cpu")] == [
         "test/ocean-no-such-cell"]
-
-
-def test_main_without_ocean_exits_2(capsys):
-    with pytest.raises(SystemExit) as e:
-        dryrun.main([])
-    assert e.value.code == 2
-    assert "A1" in capsys.readouterr().out
 
 
 def test_fake_group_transport_moves_no_data():

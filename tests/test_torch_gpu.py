@@ -1051,3 +1051,20 @@ def test_dryrun_record_on_the_card_is_the_cpu_record(cuda, period):
             == {"solve_r": 2, "solve_w": 2, "block_thomas": 2,
                 "lateral_flux": 4, "tridiag": 4})
     assert recs["cuda"]["memory"]["peak_per_device"] > 0
+
+
+def test_lm_dryrun_record_on_the_card_is_the_cpu_record(cuda):
+    """`lm_dryrun.trace_cell` of olmo-1b train_4k, full size, on a fake
+    group of (2, 4): traced on fake CUDA tensors (K9 through its custom op,
+    whose fake runs) and on fake CPU tensors, the same bytes, flops,
+    collectives and arguments, and the same K9 calls."""
+    from repro_torch.launch import lm_dryrun
+    from repro_torch.launch.mesh import small_spec
+    recs = {dev: lm_dryrun.trace_cell("olmo-1b", "train_4k", small_spec(2, 4),
+                                      device=dev) for dev in ("cuda", "cpu")}
+    for f in ("bytes", "flops", "n_collectives", "coll_bytes"):
+        assert recs["cuda"]["hlo"][f] == recs["cpu"]["hlo"][f], f
+    assert (recs["cuda"]["memory"]["argument_bytes"]
+            == recs["cpu"]["memory"]["argument_bytes"])
+    assert recs["cuda"]["kernels"] == recs["cpu"]["kernels"]
+    assert recs["cuda"]["device"] == "cuda" and "card" in recs["cuda"]

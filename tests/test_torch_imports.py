@@ -38,9 +38,10 @@ TRAIN = ("optim", "optim.adamw", "optim.compression", "launch.train",
          "train_lm")
 # the LM mesh path: the meshes, the sharding rules and the ranks' group
 MESH = ("launch.mesh", "models.sharding", "distributed.staged")
-# the ocean dry run: the roofline, the kernels' formulas and the launchers
+# the dry runs: the roofline, the kernels' formulas and the launchers
 DRYRUN = ("roofline", "roofline.analysis", "roofline.rederive",
-          "roofline.kernels", "launch.ocean_dryrun", "launch.dryrun")
+          "roofline.kernels", "launch.ocean_dryrun", "launch.lm_dryrun",
+          "launch.dryrun")
 
 SCRIPT = textwrap.dedent(r"""
     import importlib, importlib.util, pkgutil, sys

@@ -371,3 +371,89 @@ def gpu_mesh_step(rank: int, n_ranks: int, case: dict) -> dict:
     if rank == 0:
         out.update(gathered)
     return out
+
+
+def serve_archs(rank: int, n_ranks: int, case: dict) -> dict:
+    """case: shape (the mesh), archs {name: {arch, B, optional prompt (the
+    prefill's tokens, numpy (B, T)), steps (decode tokens, numpy (n, B,
+    1)), max_len}}.  Each arch's `Model.prefill` and `decode_step` (from an
+    empty cache, one step a token) on the mesh: seeded float32 parameters
+    laid out by JAX's rules, the batch and the cache by `batch_pspecs`, the
+    hooks set as the dry run sets them (`lm_dryrun.set_hooks`); and the same
+    on one device.  Returns each one's largest difference over max |ref|:
+    the prefill's logits, each decode step's, and the cache after the last
+    step, with the cache's local shapes."""
+    from repro_torch.launch import lm_dryrun
+    mesh = mesh_of(case["shape"])
+    out = {"zero1": zero1_update(mesh)}
+    for name, c in case["archs"].items():
+        arch, B = c["arch"], c["B"]
+        one, dist_model = model_of(arch), model_of(arch)
+        params = one.init(0)
+        errs = {}
+        kinds = ((("prefill", c["prompt"].shape[1]),) if "prompt" in c
+                 else ()) + (("decode", c["max_len"]),)
+        for kind, T_ in kinds:
+            shape = ShapeSpec(kind, kind, T_, B)
+            tp, dp = sharding.strategy_for(arch, mesh, B)
+            lm_dryrun.set_hooks(dist_model, shape, mesh, tp, dp)
+            dparams = sharding.distribute(
+                params, sharding.param_pspecs(dist_model, mesh, tp=tp), mesh)
+            specs = sharding.batch_pspecs(dist_model, shape, mesh, dp=dp,
+                                          tp=tp or "model")
+            if kind == "prefill":
+                tokens = torch.from_numpy(c["prompt"].astype(np.int64))
+                ref = one.prefill(params, {"tokens": tokens})
+                got = dist_model.prefill(dparams, sharding.distribute(
+                    {"tokens": tokens}, {"tokens": specs["tokens"]}, mesh))
+                errs["prefill"] = _share(got.full_tensor(), ref)
+                continue
+            cache = one.init_cache(B, c["max_len"])
+            dcache = sharding.distribute(one.init_cache(B, c["max_len"]),
+                                         specs["cache"], mesh)
+            steps = []
+            for pos, tok in enumerate(c["steps"]):
+                tok = torch.from_numpy(tok.astype(np.int64))
+                ref, cache = one.decode_step(params, cache, tok, pos)
+                dtok = sharding.distribute({"t": tok}, {"t": specs["tokens"]},
+                                           mesh)["t"]
+                got, dcache = dist_model.decode_step(dparams, dcache, dtok, pos)
+                steps.append(_share(got.full_tensor(), ref))
+            errs["decode"] = max(steps)
+            errs["cache"] = max(_share(d.full_tensor(), r) for d, r in zip(
+                T.leaves(dcache), T.leaves(cache)))
+            errs["cache_local"] = local_shapes(dcache)
+        out[name] = errs
+    return out
+
+
+def zero1_update(mesh) -> dict:
+    """One `adamw.update` of an (8, 6) leaf whose moments are split
+    further than the parameter (ZeRO-1: the parameter [Replicate(),
+    Shard(1)], m and v [Shard(0), Shard(1)]), out of place and in place,
+    against one device: the largest difference of the new parameter and
+    moments, and the new parameter's placements."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    g = torch.Generator().manual_seed(0)
+    p, grad = (torch.randn(8, 6, generator=g) for _ in range(2))
+    st = adamw.init({"w": p.clone()})
+    ref_p, ref_st = adamw.update({"w": grad}, st, {"w": p.clone()})
+    p_pl, m_pl = (Replicate(), Shard(1)), (Shard(0), Shard(1))
+    out = {}
+    for inplace in (False, True):
+        d = lambda t, pl: distribute_tensor(t.clone(), mesh, pl)
+        dst = adamw.AdamWState(m={"w": d(torch.zeros(8, 6), m_pl)},
+                               v={"w": d(torch.zeros(8, 6), m_pl)},
+                               step=torch.zeros((), dtype=torch.int32))
+        new_p, new_st = adamw.update({"w": d(grad, p_pl)}, dst,
+                                     {"w": d(p, p_pl)}, inplace=inplace)
+        out[inplace] = dict(
+            err=max(float((a.full_tensor() - b).abs().max()) for a, b in (
+                (new_p["w"], ref_p["w"]), (new_st.m["w"], ref_st.m["w"]),
+                (new_st.v["w"], ref_st.v["w"]))),
+            placements=repr(tuple(new_p["w"].placements)))
+    return out
+
+
+def _share(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((got - ref).abs().max() / max(float(ref.abs().max()), 1e-30))
