@@ -21,9 +21,17 @@ them, and counts what that rank's program pays (`RankCounter`):
     left out, so the count does not depend on what ran before;
   * bytes and flops of each local aten op, as `ocean_dryrun.StepCounter`
     counts them, under the source tags of the open ranges (`SOURCE_TAGS`:
-    the four places where the port gathers a whole tensor that JAX's GSPMD
-    program keeps sharded, `layers.embed_lookup`, `layers.token_nll`,
-    `moe._route` and `mamba._ssm`, by their own names, then JAX's tags);
+    the port's three ops that run on each rank's shard under `local_map`
+    with their collectives written out as JAX's GSPMD program has them,
+    by their own names, then JAX's tags): `layers.embed_lookup` (the
+    lookup in the rank's vocab shard; the shard's FSDP gather over "data";
+    the sum over "model" falls to the next op), `layers.token_nll` (the
+    all-reduces of each row's max, sum of exp and gold logit over the
+    vocab shards) and `mamba._ssm` (the scan of the rank's di channels;
+    the all-reduces of the products over di to dt's rank, B and C).
+    MoE's routing (`moe._route`) moves nothing (its probabilities' expert
+    dim is whole in JAX's layout too), so its bytes count under
+    `moe_apply`;
   * K9 and K8 by their formulas (`roofline/kernels.py`) through
     `kernels/ops.py: tapped`, called through their custom ops on either
     device, so only the ops' fakes run and the plain version's (T, T)
@@ -80,17 +88,18 @@ from .mesh import MeshSpec, axis_sizes, init_fake_group, is_dtensor, make_mesh
 from .ocean_dryrun import (_NO_TRAFFIC, StepCounter, StepTrace, _tensors,
                            card_info)
 
-# where the port gathers a whole tensor that JAX's program keeps sharded
-# (`models/model.py`), reported under their own tags, ahead of JAX's
-REPLICATE_TAGS = ("layers.embed_lookup", "layers.token_nll", "moe._route",
-                  "mamba._ssm")
-SOURCE_TAGS = REPLICATE_TAGS + analysis.SOURCE_TAGS
+# the port's ops whose collectives `local_map` writes out (`models/model.py`):
+# an all-reduce of a shard's statistics or of a partial product, and the
+# FSDP gather of the embedding's vocab shard; reported under their own
+# tags, ahead of JAX's
+PORT_TAGS = ("layers.embed_lookup", "layers.token_nll", "mamba._ssm")
+SOURCE_TAGS = PORT_TAGS + analysis.SOURCE_TAGS
 # the port's ranges that stand for a source tag (``kops.<op>`` by its op)
 RANGE_TAGS = {"kops.wkv6": "wkv", "rwkv.wkv_backward": "wkv",
               "kops.attention": "flash_attention",
               "attention.backward": "flash_attention", "mamba": "mamba",
               "moe_apply": "moe_apply", "adamw": "adamw",
-              **{t: t for t in REPLICATE_TAGS}}
+              **{t: t for t in PORT_TAGS}}
 # DTensor's collectives, by JAX's kind names
 COLLECTIVES = {
     "_c10d_functional::all_gather_into_tensor": "all-gather",

@@ -12,9 +12,14 @@ On a mesh the activations and parameters are DTensors (`models/sharding`):
 a layout hook is a ``(DeviceMesh, placements)`` pair, applied by `pin`
 with `redistribute` where JAX applies `with_sharding_constraint`, and only
 to a DTensor.  Attention's core runs under `local_map` on each rank's own
-heads and batch rows (`head_placements`), so K9 sees plain tensors, the
+heads and batch rows (`core_placements`), so K9 sees plain tensors, the
 rank's shard; plain tensors made inside a layer (RoPE's tables) join a
-DTensor computation replicated (`replicated_like`).
+DTensor computation replicated (`replicated_like`).  The layouts that
+GSPMD would give JAX's program are written out rather than left to
+DTensor's strategies, which differ between torch versions: every
+weight product at Megatron's layout (`tp_einsum`), the residual add at
+the stream's layout (`add_residual`), the vocab-parallel lookup and loss
+(`embed_lookup`, `token_nll`).
 """
 from __future__ import annotations
 
@@ -218,40 +223,192 @@ def _rows_of(like) -> tuple:
                      for p in pl)
 
 
+def all_reduce(t, op: str, mesh, dims):
+    """``t`` all-reduced (``op`` "sum" or "max") over each mesh dim of
+    ``dims`` in turn, outside autograd."""
+    import torch.distributed._functional_collectives as funcol
+    for d in dims:
+        t = funcol.all_reduce(t, op, (mesh, d))
+        t = t.wait() if hasattr(t, "wait") else t
+    return t
+
+
+class AllReduceSum(torch.autograd.Function):
+    """The sum over the mesh dims ``dims`` of each rank's partial ``t``,
+    used by every rank for its own channels: the backward sums the ranks'
+    gradients the same way."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return all_reduce(t, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), "sum", ctx.mesh, ctx.dims), None, None
+
+
+def _split_by(x, dim: int) -> list:
+    """The mesh dims on which the DTensor ``x`` is `Shard(dim)`."""
+    from torch.distributed.tensor import Shard
+    return [d for d, q in enumerate(x.placements) if q == Shard(dim)]
+
+
+def tp_einsum(eq: str, x, w):
+    """``torch.einsum(eq, x, w)`` of activations x and a weight w, each dim
+    a letter of ``eq``.  On DTensors under `local_map` at Megatron's
+    layout, whatever DTensor's own strategy would pick (torch 2.13's
+    gathers a column-parallel weight to multiply a `Partial` x, and
+    computes every output column on every rank).  On each mesh dim:
+      * x's rows (a dim of x and of the output only) stay where x has
+        them, the weight whole there (its gradient a partial sum);
+      * a weight split on an output dim (column-parallel) takes x whole
+        and splits the output there (x's gradient a partial sum);
+      * a weight split on a contracted dim (row-parallel) takes x split
+        the same way and gives a `Partial` sum;
+      * else both are whole (a `Partial` x is reduced)."""
+    if not is_dtensor(x):
+        return torch.einsum(eq, x, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    ins, out = eq.split("->")
+    xs, ws = ins.split(",")
+    whole = (Replicate(),) * 5
+    pls = []                     # (x, w, out, x's grad, w's grad) a mesh dim
+    for q, wq in zip(x.placements, w.placements):
+        lx = xs[q.dim] if isinstance(q, Shard) else None
+        lw = ws[wq.dim] if isinstance(wq, Shard) else None
+        if lx and lx in out and lx not in ws:
+            pls.append((q, Replicate(), Shard(out.index(lx)), q, Partial()))
+        elif lw and lw in out:
+            pls.append((Replicate(), wq, Shard(out.index(lw)), Partial(), wq))
+        elif lw and lw in xs:
+            s = Shard(xs.index(lw))
+            pls.append((s, wq, Partial(), s, wq))
+        else:
+            pls.append(whole)
+    x_pl, w_pl, o_pl, x_grad, w_grad = zip(*pls)
+    return local_map(lambda a, b: torch.einsum(eq, a, b),
+                     out_placements=(o_pl,), in_placements=(x_pl, w_pl),
+                     in_grad_placements=(x_grad, w_grad),
+                     redistribute_inputs=True)(x, w)
+
+
+def add_residual(x, y):
+    """x + y, a sub-layer's output y added to the residual stream x.  On
+    DTensors the sum takes the stream's layout (x's, a `Partial` one
+    reduced), as GSPMD gives the add its operand's sharding: a row-parallel
+    (`Partial`) output is all-reduced, or reduce-scattered onto a
+    sequence-split stream, once (DTensor keeps such a sum partial and then
+    reduces the next norm's float32 intermediates)."""
+    if not (is_dtensor(x) and is_dtensor(y)):
+        return x + y
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    pl = tuple(Replicate() if q.is_partial() else q for q in x.placements)
+    return x.redistribute(mesh, pl) + y.redistribute(mesh, pl)
+
+
 def embed_lookup(table, tokens):
-    """``table[tokens]``.  On DTensors each rank looks its own tokens up in
-    the whole table under `local_map` (DTensor's index rule fails in the
-    backward), the table's gradient a partial sum over the mesh dims that
-    split the tokens."""
+    """``table[tokens]``.  On DTensors under `local_map` (DTensor's index
+    rule fails in the backward).  Over the mesh dims that split the
+    table's vocab and not the tokens (JAX's `embed` spec, ``P(tp,
+    None)``), each rank looks its tokens up in its own vocab shard, a
+    token outside it giving zero: the output is a `Partial` sum over those
+    dims, which the next op reduces, and the table's gradient stays on the
+    shard's rows.  Each rank looks up its own tokens; the table is
+    gathered over every other mesh dim, its gradient a partial sum over
+    the dims that split the tokens."""
     if not is_dtensor(table):
         return table[tokens]
-    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     tokens = tokens if is_dtensor(tokens) else replicated_like(tokens, table)
     pl, partial = _rows_of(tokens)
-    whole = (Replicate(),) * table.device_mesh.ndim
+    vocab = [d for d in _split_by(table, 0) if pl[d] == Replicate()]
+    t_pl = tuple(Shard(0) if d in vocab else Replicate() for d in range(len(pl)))
+    out = tuple(Partial() if d in vocab else q for d, q in enumerate(pl))
+    grad = tuple(Shard(0) if d in vocab else q for d, q in enumerate(partial))
+    v0 = shard_offset(table.shape[0], table.device_mesh, t_pl, 0)
+
+    def look(t, i):
+        if not vocab:
+            return t[i]
+        i = i - v0
+        inside = (i >= 0) & (i < t.shape[0])
+        return torch.where(inside[..., None], t[i.clamp(0, t.shape[0] - 1)],
+                           t.new_zeros(()))
     with annotate("layers.embed_lookup"):
-        return local_map(lambda t, i: t[i], out_placements=(pl,),
-                         in_placements=(whole, pl),
-                         in_grad_placements=(partial, pl),
+        return local_map(look, out_placements=(out,), in_placements=(t_pl, pl),
+                         in_grad_placements=(grad, pl),
                          redistribute_inputs=True)(table, tokens)
+
+
+def _nll(lf, labels):
+    lse = torch.logsumexp(lf, dim=-1)
+    return lse - torch.gather(lf, -1, labels[..., None].long())[..., 0]
+
+
+class _VocabNll(torch.autograd.Function):
+    """Cross entropy of each row of a vocab shard lf (..., V_local),
+    float32, whose first column is vocab id ``v0``, against global labels:
+    the shard's max, sum of exp and gold logit (a range test, as JAX's
+    one-hot over the sharded V) all-reduced over the mesh dims ``dims``
+    that split V.  The backward, softmax minus the one-hot on the shard,
+    is local; the max is a constant for it."""
+
+    @staticmethod
+    def forward(ctx, lf, labels, v0, mesh, dims):
+        top = all_reduce(lf.amax(dim=-1), "max", mesh, dims)
+        total = all_reduce(torch.exp(lf - top[..., None]).sum(dim=-1), "sum",
+                           mesh, dims)
+        i = labels.long() - v0
+        inside = (i >= 0) & (i < lf.shape[-1])
+        i = i.clamp(0, lf.shape[-1] - 1)
+        gold = torch.gather(lf, -1, i[..., None])[..., 0]
+        gold = all_reduce(torch.where(inside, gold, gold.new_zeros(())), "sum",
+                          mesh, dims)
+        lse = top + torch.log(total)
+        ctx.save_for_backward(lf, lse, i, inside)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        lf, lse, i, inside = ctx.saved_tensors
+        grad = torch.exp(lf - lse[..., None])
+        grad.scatter_add_(-1, i[..., None], -inside[..., None].to(grad.dtype))
+        return grad * g[..., None], None, None, None, None
 
 
 def token_nll(lf, labels):
     """Cross entropy of each token: logsumexp(lf) - lf[label], float32 lf
-    (..., V).  On DTensors each rank takes its own rows with the whole
-    vocab under `local_map` (DTensor's gather rule fails in the
-    backward)."""
-    def nll(lf_, labels_):
-        lse = torch.logsumexp(lf_, dim=-1)
-        return lse - torch.gather(lf_, -1, labels_[..., None].long())[..., 0]
+    (..., V).  On DTensors under `local_map` (DTensor's gather rule fails
+    in the backward) at the logits' own rows: where V is split (JAX's
+    `logits_sharding`), vocab-parallel (`_VocabNll`: each rank's shard
+    statistics all-reduced, no logit moved); else each rank takes its own
+    rows with the whole vocab."""
     if not is_dtensor(lf):
-        return nll(lf, labels)
+        return _nll(lf, labels)
+    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     labels = labels if is_dtensor(labels) else replicated_like(labels, lf)
-    pl, _ = _rows_of(labels)
+    last = lf.dim() - 1
+    vocab = _split_by(lf, last)
+    if not vocab:
+        pl, _ = _rows_of(labels)
+        with annotate("layers.token_nll"):
+            return local_map(_nll, out_placements=(pl,), in_placements=(pl, pl),
+                             redistribute_inputs=True)(lf, labels)
+    mesh = lf.device_mesh
+    rows = tuple(q if isinstance(q, Shard) and q.dim < last else Replicate()
+                 for q in lf.placements)
+    lf_pl = tuple(Shard(last) if d in vocab else q for d, q in enumerate(rows))
+    v0 = shard_offset(lf.shape[last], mesh, lf_pl, last)
+    nll = lambda lf_, labels_: _VocabNll.apply(lf_, labels_, v0, mesh, vocab)
     with annotate("layers.token_nll"):
-        return local_map(nll, out_placements=(pl,), in_placements=(pl, pl),
+        return local_map(nll, out_placements=(rows,),
+                         in_placements=(lf_pl, rows),
+                         in_grad_placements=(lf_pl, rows),
                          redistribute_inputs=True)(lf, labels)
 
 
@@ -274,39 +431,23 @@ def gather_fsdp(p):
     return p if pl == tuple(p.placements) else p.redistribute(p.device_mesh, pl)
 
 
-def head_placements(mesh, batch: int, heads: int) -> tuple:
-    """Placements of a (B, H, ...) tensor on ``mesh``: the heads over
-    "model" when it divides them, the batch over the data-parallel axes
-    ("pod", "data") when they divide it (else over the first alone, as
-    `sharding.batch_pspecs` falls back), else replicated."""
-    from torch.distributed.tensor import Replicate, Shard
-    names = list(mesh.mesh_dim_names)
-    sizes = dict(zip(names, mesh.shape))
-    dp = [a for a in names if a in ("pod", "data")]
-    prod = 1
-    for a in dp:
-        prod *= sizes[a]
-    if dp and batch % prod:
-        dp = dp[:1] if batch % sizes[dp[0]] == 0 else []
-    out = []
-    for a in names:
-        if a == "model" and heads % sizes[a] == 0:
-            out.append(Shard(1))
-        elif a in dp:
-            out.append(Shard(0))
-        else:
-            out.append(Replicate())
-    return tuple(out)
-
-
 def core_placements(x, sharding) -> tuple:
     """Placements a kernel core (attention, WKV) runs at on the (B, H, T, ...)
-    DTensor ``x``: ``sharding``'s when it is set, else `head_placements`.
-    Each rank's core sees whole sequences, so only the batch and the heads
-    may be split."""
+    DTensor ``x``: ``sharding``'s when it is set, else the batch where
+    ``x`` already has it (`Shard(0)` on each mesh dim that splits it, as
+    GSPMD keeps an operand's layout) and the heads over "model" when
+    "model" does not carry the batch and divides them; every other mesh dim
+    replicated.  Each rank's core sees whole sequences, so only the batch
+    and the heads may be split."""
     from torch.distributed.tensor import Replicate, Shard
     if sharding is None:
-        return head_placements(x.device_mesh, x.shape[0], x.shape[1])
+        mesh = x.device_mesh
+        return tuple(
+            Shard(0) if p == Shard(0) else
+            Shard(1) if name == "model" and x.shape[1] % size == 0 else
+            Replicate()
+            for p, name, size in zip(x.placements, mesh.mesh_dim_names,
+                                     mesh.shape))
     pl = tuple(sharding[1])
     if any(p not in (Shard(0), Shard(1), Replicate()) for p in pl):
         raise ValueError(f"a kernel core splits only the batch and the "
@@ -344,11 +485,9 @@ def attention(p, x, cfg: AttnCfg, positions: torch.Tensor, backend=None,
     ``cfg.pad_heads_to``), and from there to `ops.attention` (K9 on the
     card) as (B*H, T, hd) contiguous tensors.  On DTensors they are first
     pinned to ``head_sharding`` (JAX's), and the core runs under
-    `local_map` at ``head_sharding``'s placements, or `head_placements`'
+    `local_map` at ``head_sharding``'s placements, or `core_placements`'
     when it is None: each rank merges and attends its own heads and rows."""
-    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
-    k = torch.einsum("btd,dhk->bthk", x, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", x, p["wv"])
+    q, k, v = (tp_einsum("btd,dhk->bthk", x, p[w]) for w in ("wq", "wk", "wv"))
     cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
     cos, sin = replicated_like(cos, x), replicated_like(sin, x)
     q = apply_rope(q, cos, sin)
@@ -372,7 +511,7 @@ def attention(p, x, cfg: AttnCfg, positions: torch.Tensor, backend=None,
     out = core(qh, kh, vh)
     if padded:
         out = out[:, :cfg.n_heads]
-    return torch.einsum("bthk,hkd->btd", out.transpose(1, 2), p["wo"])
+    return tp_einsum("bthk,hkd->btd", out.transpose(1, 2), p["wo"])
 
 
 def decode_attention(p, x, cfg: AttnCfg, kv_cache, pos: int):
@@ -385,9 +524,8 @@ def decode_attention(p, x, cfg: AttnCfg, kv_cache, pos: int):
     On a DTensor cache, `_decode_attention_sharded`."""
     B, _, D = x.shape
     pos = int(pos)
-    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
-    k_new = torch.einsum("btd,dhk->bthk", x, p["wk"])
-    v_new = torch.einsum("btd,dhk->bthk", x, p["wv"])
+    q, k_new, v_new = (tp_einsum("btd,dhk->bthk", x, p[w])
+                       for w in ("wq", "wk", "wv"))
     cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta,
                           torch.tensor([pos], device=x.device))
     cos, sin = replicated_like(cos, x), replicated_like(sin, x)
@@ -403,7 +541,7 @@ def decode_attention(p, x, cfg: AttnCfg, kv_cache, pos: int):
         m, l, acc = _decode_partial(q[:, 0], kc, vc, ids, cfg, pos)
         out = acc / l
     out = out.reshape(B, cfg.n_heads, cfg.head_dim)
-    out = torch.einsum("bhk,hkd->bd", out.to(x.dtype), p["wo"])
+    out = tp_einsum("bhk,hkd->bd", out.to(x.dtype), p["wo"])
     return out[:, None, :], kv_cache
 
 
@@ -437,7 +575,6 @@ def _decode_attention_sharded(q, k_new, v_new, kc, vc, cfg: AttnCfg, pos: int):
     attends over its keys; the partial softmaxes are combined by
     all-reduces over the mesh dims that split the sequence (max, then the
     sums).  Returns (B, H, hd) float32 at the cache's batch placements."""
-    import torch.distributed._functional_collectives as funcol
     from torch.distributed.tensor import DTensor, Replicate, Shard
     mesh = kc.device_mesh
     rows = tuple(Shard(0) if pl == Shard(0) else Replicate()
@@ -452,15 +589,9 @@ def _decode_attention_sharded(q, k_new, v_new, kc, vc, cfg: AttnCfg, pos: int):
         vl[:, pos - t0] = vl_new[:, 0].to(vl.dtype)
     ids = t0 + torch.arange(kl.shape[1], device=kl.device)
     m, l, acc = _decode_partial(ql[:, 0], kl, vl, ids, cfg, pos)
-    wait = lambda t: t.wait() if hasattr(t, "wait") else t
-    top = m
-    for d in seq_dims:
-        top = wait(funcol.all_reduce(top, "max", (mesh, d)))
-    scale = torch.exp(m - top)
-    l, acc = l * scale, acc * scale
-    for d in seq_dims:
-        l = wait(funcol.all_reduce(l, "sum", (mesh, d)))
-        acc = wait(funcol.all_reduce(acc, "sum", (mesh, d)))
+    scale = torch.exp(m - all_reduce(m, "max", mesh, seq_dims))
+    l = all_reduce(l * scale, "sum", mesh, seq_dims)
+    acc = all_reduce(acc * scale, "sum", mesh, seq_dims)
     out = acc / l
     B = kc.shape[0]
     shape = (B,) + tuple(out.shape[1:])
@@ -508,9 +639,11 @@ def gelu(x):
 
 
 def mlp(p, x, act: str):
+    """x (B, T, D) -> (B, T, D): Megatron's MLP on a mesh (`tp_einsum`),
+    column-parallel `w_gate` / `w_in`, row-parallel `w_out`."""
+    up = lambda w: tp_einsum("btd,df->btf", x, w)
     if act == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_in"])
+        h = F.silu(up(p["w_gate"])) * up(p["w_in"])
     else:
-        h = gelu(x @ p["w_in"])
-    return h @ p["w_out"]
-
+        h = gelu(up(p["w_in"]))
+    return tp_einsum("btf,fd->btd", h, p["w_out"])

@@ -15,7 +15,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from ..obs.trace import annotate
-from .layers import Draw, is_dtensor, traced_chunks
+from .layers import (AllReduceSum, Draw, is_dtensor, tp_einsum,
+                     traced_chunks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,40 +95,59 @@ def _ssm_scan(u, dt, B, C, A, D, chunk: int = 32):
     return torch.cat(ys, dim=1) + D[None, None] * u
 
 
-def _dt_b_c(p, u):
-    """dt, B and C from the float32 activations u."""
-    dt = F.softplus((u @ p["w_xdt"].float()) @ p["w_dt"].float() + p["dt_bias"])
-    return dt, u @ p["w_B"].float(), u @ p["w_C"].float()
+def _dt_b_c(u, w_xdt, w_dt, dt_bias, w_B, w_C, reduce=None):
+    """dt, B and C from the float32 activations u (..., di).  ``reduce``
+    sums a product over di across the ranks that hold di's other channels
+    (the identity when u holds every channel)."""
+    reduce = reduce or (lambda t: t)
+    dt = F.softplus(reduce(u @ w_xdt.float()) @ w_dt.float() + dt_bias)
+    return dt, reduce(u @ w_B.float()), reduce(u @ w_C.float())
 
 
 _SSM_KEYS = ("w_xdt", "w_dt", "dt_bias", "w_B", "w_C", "A_log", "D")
+# the di dim of each weight of `_SSM_KEYS`
+_SSM_DI = (0, 1, 0, 0, 0, 0, 0)
 
 
-def _ssm_rows(u, w_xdt, w_dt, dt_bias, w_B, w_C, A_log, D):
+def _ssm_rows(u, w_xdt, w_dt, dt_bias, w_B, w_C, A_log, D, reduce=None):
     """The selective scan of float32 activations u (B, T, di)."""
-    dt, Bm, Cm = _dt_b_c(dict(w_xdt=w_xdt, w_dt=w_dt, dt_bias=dt_bias,
-                              w_B=w_B, w_C=w_C), u)
+    dt, Bm, Cm = _dt_b_c(u, w_xdt, w_dt, dt_bias, w_B, w_C, reduce)
     return _ssm_scan(u, dt, Bm, Cm, -torch.exp(A_log), D)
 
 
+def _channels(u, weights) -> tuple:
+    """The layout of mamba's SSM on DTensors, JAX's: each rank's batch rows
+    (where u splits them) and its own di channels (where JAX's specs split
+    `w_xdt`'s di), the other mesh dims replicated.  Returns (the mesh dims
+    that split di, u's placements, the weights', the weights' gradients:
+    partial sums over the mesh dims that split the rows)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    rows = [d for d, q in enumerate(u.placements) if q == Shard(0)]
+    chan = [d for d, q in enumerate(weights[0].placements)
+            if q == Shard(0) and d not in rows]
+    u_pl = tuple(Shard(0) if d in rows else Shard(u.dim() - 1) if d in chan
+                 else Replicate() for d in range(u.device_mesh.ndim))
+    w_pl = tuple(tuple(Shard(di) if q == Shard(u.dim() - 1) else Replicate()
+                       for q in u_pl) for di in _SSM_DI)
+    grads = tuple(tuple(Partial() if q == Shard(0) else wq
+                        for q, wq in zip(u_pl, pl)) for pl in w_pl)
+    return chan, u_pl, w_pl, grads
+
+
 def _ssm(u, *weights):
-    """`_ssm_rows`; on a DTensor under `local_map`, each rank scanning its
-    own batch rows over every channel with whole weights (replicated over
-    "model": DTensor cannot add the partial sum that the di-sharded
-    projection to dt gives to the di-sharded bias), the weights' gradients
-    partial sums over the mesh dims that split the rows."""
+    """`_ssm_rows`; on a DTensor under `local_map` at `_channels`' layout:
+    each rank scans its own rows and channels, the products over di to
+    dt's rank, B and C all-reduced over the mesh dims that split di
+    (`layers.AllReduceSum`); the rest is channel-local."""
     if not is_dtensor(u):
         return _ssm_rows(u, *weights)
-    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
-    pl = tuple(q if q == Shard(0) else Replicate() for q in u.placements)
-    whole = (Replicate(),) * u.device_mesh.ndim
-    partial = tuple(Partial() if q == Shard(0) else Replicate() for q in pl)
-    n = len(weights)
+    chan, u_pl, w_pl, grads = _channels(u, weights)
+    reduce = lambda t: AllReduceSum.apply(t, u.device_mesh, chan)
     with annotate("mamba._ssm"):
-        return local_map(_ssm_rows, out_placements=(pl,),
-                         in_placements=(pl,) + (whole,) * n,
-                         in_grad_placements=(pl,) + (partial,) * n,
+        return local_map(lambda *a: _ssm_rows(*a, reduce=reduce),
+                         out_placements=(u_pl,), in_placements=(u_pl, *w_pl),
+                         in_grad_placements=(u_pl, *grads),
                          redistribute_inputs=True)(u, *weights)
 
 
@@ -140,21 +160,21 @@ def mamba_apply(p, x, cfg: MambaCfg):
 def _mamba_apply(p, x, cfg: MambaCfg):
     B, T, D = x.shape
     di = cfg.d_inner(D)
-    xi, z = (x @ p["w_in"]).chunk(2, dim=-1)             # (B, T, di) each
+    xi, z = tp_einsum("btd,de->bte", x, p["w_in"]).chunk(2, dim=-1)  # (B, T, di)
     # causal depthwise conv, summed in JAX's order
     xpad = torch.cat([xi.new_zeros((B, cfg.d_conv - 1, di)), xi], dim=1)
     conv = sum(xpad[:, k:k + T, :] * p["conv_w"][k][None, None]
                for k in range(cfg.d_conv)) + p["conv_b"]
     u = F.silu(conv).float()
     y = _ssm(u, *(p[k] for k in _SSM_KEYS))
-    return (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+    return tp_einsum("bte,ed->btd", y.to(x.dtype) * F.silu(z), p["w_out"])
 
 
-def _ssm_step_rows(u, h, w_xdt, w_dt, dt_bias, w_B, w_C, A_log, D):
+def _ssm_step_rows(u, h, w_xdt, w_dt, dt_bias, w_B, w_C, A_log, D,
+                   reduce=None):
     """One decode step of the selective SSM: float32 u (B, di), state h
     (B, di, N) -> (y (B, di), the new state)."""
-    dt, Bm, Cm = _dt_b_c(dict(w_xdt=w_xdt, w_dt=w_dt, dt_bias=dt_bias,
-                              w_B=w_B, w_C=w_C), u)
+    dt, Bm, Cm = _dt_b_c(u, w_xdt, w_dt, dt_bias, w_B, w_C, reduce)
     A = -torch.exp(A_log)
     dA = torch.exp(dt[..., None] * A[None])               # (B, di, N)
     h = dA * h + (dt * u)[..., None] * Bm[:, None, :]
@@ -163,17 +183,17 @@ def _ssm_step_rows(u, h, w_xdt, w_dt, dt_bias, w_B, w_C, A_log, D):
 
 def _ssm_step(u, h, *weights):
     """`_ssm_step_rows`; on DTensors under `local_map` as `_ssm`, each rank
-    stepping its own batch rows over every channel (the state's channels
-    gathered) with whole weights."""
+    stepping its own rows and channels, the state (B, di, N) split over di
+    as JAX's cache spec splits it."""
     if not is_dtensor(u):
         return _ssm_step_rows(u, h, *weights)
-    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
-    pl = tuple(q if q == Shard(0) else Replicate() for q in u.placements)
-    whole = (Replicate(),) * u.device_mesh.ndim
+    chan, u_pl, w_pl, _ = _channels(u, weights)
+    reduce = lambda t: AllReduceSum.apply(t, u.device_mesh, chan)
     with annotate("mamba._ssm"):
-        return local_map(_ssm_step_rows, out_placements=(pl, pl),
-                         in_placements=(pl, pl) + (whole,) * len(weights),
+        return local_map(lambda *a: _ssm_step_rows(*a, reduce=reduce),
+                         out_placements=(u_pl, u_pl),
+                         in_placements=(u_pl, u_pl, *w_pl),
                          redistribute_inputs=True)(u, h, *weights)
 
 
@@ -181,13 +201,13 @@ def mamba_decode(p, x, state, cfg: MambaCfg):
     """Single-token decode. x (B, 1, D); state = (conv_state (B, d_conv-1, di),
     ssm_state (B, di, N)). Returns (out, new_state)."""
     with annotate("mamba"):
-        xi, z = (x[:, 0] @ p["w_in"]).chunk(2, dim=-1)       # (B, di)
+        xi, z = tp_einsum("bd,de->be", x[:, 0], p["w_in"]).chunk(2, dim=-1)
         conv_state, h = state
         xc = torch.cat([conv_state, xi[:, None]], dim=1)     # (B, d_conv, di)
         conv = (xc * p["conv_w"][None]).sum(dim=1) + p["conv_b"]
         u = F.silu(conv).float()                              # (B, di)
         y, h = _ssm_step(u, h, *(p[k] for k in _SSM_KEYS))
-        out = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+        out = tp_einsum("be,ed->bd", y.to(x.dtype) * F.silu(z), p["w_out"])
         return out[:, None], (xc[:, 1:], h)
 
 

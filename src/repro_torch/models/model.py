@@ -44,21 +44,31 @@ sequence shard holds ``pos`` (`layers.decode_attention`), and the
 attention over a sequence-sharded cache is flash-decoding's: each rank's
 partial softmax over its keys, combined by all-reduces of the row max,
 the normaliser and the output.  The mamba step runs under `local_map`
-as its scan does.
+as its scan does, its state split over di as JAX's cache spec splits it.
 
 Each sub-layer first gathers its weights' FSDP shards (`layers.
 gather_fsdp`, FSDP's gather before use; the tensor-parallel shards stay).
-Where DTensor has no dependable sharding rule for an op of the path, the
-op runs under `local_map` on whole tensors of each rank's rows
-(`redistribute` to `Replicate()` on the other dims):
-  * the token lookup, `layers.py:164` `embed_lookup` (the embedding table
-    whole);
-  * the loss's gather, `layers.py:181` `token_nll` (the logits' vocab
-    whole);
-  * MoE routing's top-k and one-hot, `moe.py:63` `_route` (every expert's
-    probability whole);
-  * mamba's selective scan, `mamba.py:102` `_ssm` (every channel whole,
-    its weights replicated over "model").
+The ops below run under `local_map` on each rank's shard at the layout
+JAX's specs imply, their collectives written out, so their layouts do not
+depend on DTensor's own strategies, which differ between torch versions:
+  * the attention core and the WKV recurrence (`layers.core_placements`:
+    the batch where the activations have it, the heads over "model" when
+    it does not carry the batch);
+  * every weight product, `layers.tp_einsum` (Megatron's layout:
+    attention's q, k, v and o, the MLP and qwen2-moe's shared experts,
+    the logits head, the frontends' projections, RWKV's and mamba's
+    projections; a row-parallel output a partial sum over "model"), and
+    MoE's expert einsums (`moe.py`);
+  * the residual add, `layers.add_residual` (the sum at the stream's
+    layout: a partial sub-layer output reduced once);
+  * the token lookup, `layers.embed_lookup` (in the rank's vocab shard,
+    the output a partial sum over "model");
+  * the loss, `layers.token_nll` (vocab-parallel: each row's max, sum of
+    exp and gold logit all-reduced over the vocab shards);
+  * mamba's selective scan and decode step, `mamba._ssm` / `_ssm_step`
+    (each rank's own di channels, the products over di all-reduced);
+  * MoE routing's top-k and one-hot, `moe._route` (every expert's
+    probability, which JAX's layout keeps whole too).
 """
 from __future__ import annotations
 
@@ -227,9 +237,9 @@ class Model:
         if sub.mixer == "rwkv":
             tm, _ = rwkv.time_mix(p["rwkv"], h, a.rwkv, backend=self.backend,
                                   head_sharding=self.head_sharding)
-            x = x + tm
+            x = layers.add_residual(x, tm)
             cm, _ = rwkv.channel_mix(p["rwkv"], layers.norm(x, p["ln2"], a.norm))
-            return x + cm, aux
+            return layers.add_residual(x, cm), aux
         if sub.mixer == "attn":
             mix = layers.attention(
                 p["attn"], h,
@@ -238,13 +248,13 @@ class Model:
                 head_sharding=self.attn_head_sharding)
         else:
             mix = mamba.mamba_apply(p["mamba"], h, a.mamba)
-        x = x + mix
+        x = layers.add_residual(x, mix)
         h2 = layers.norm(x, p["ln2"], a.norm)
         if sub.ffn == "moe":
             ffn, aux = moe.moe_apply(p["moe"], h2, a.moe)
         else:
             ffn = layers.mlp(p["mlp"], h2, a.act)
-        return x + ffn, aux
+        return layers.add_residual(x, ffn), aux
 
     def _scale_embed(self, x):
         if self.arch.name.startswith("gemma"):
@@ -257,12 +267,14 @@ class Model:
         a = self.arch
         if a.frontend == "audio":
             proj = layers.gather_fsdp(params["audio_proj"])
-            return batch["frame_embeds"].to(self.dtype) @ proj
+            return layers.tp_einsum("btd,de->bte",
+                                    batch["frame_embeds"].to(self.dtype), proj)
         x = self._scale_embed(layers.embed_lookup(params["embed"],
                                                   batch["tokens"]))
         if a.frontend == "vlm":
-            pe = batch["patch_embeds"].to(self.dtype) @ layers.gather_fsdp(
-                params["vlm_proj"])
+            pe = layers.tp_einsum("btd,de->bte",
+                                  batch["patch_embeds"].to(self.dtype),
+                                  layers.gather_fsdp(params["vlm_proj"]))
             x = torch.cat([pe, x[:, a.n_patches:]], dim=1)
         return x
 
@@ -271,7 +283,7 @@ class Model:
         x = layers.norm(x, params["final_norm"], a.norm)
         head = layers.gather_fsdp(params["embed"]).T if a.tie_embeddings \
             else layers.gather_fsdp(params["head"])
-        logits = x @ head
+        logits = layers.tp_einsum("btd,dv->btv", x, head)
         if a.softcap_logits is not None:
             logits = a.softcap_logits * torch.tanh(logits / a.softcap_logits)
         return logits
@@ -364,25 +376,25 @@ class Model:
             tm, (tshift, wkv_s) = rwkv.time_mix(
                 p["rwkv"], h, a.rwkv, shift_state=cch["tm_shift"],
                 wkv_state=cch["wkv"])
-            x = x + tm
+            x = layers.add_residual(x, tm)
             cm, cshift = rwkv.channel_mix(
                 p["rwkv"], layers.norm(x, p["ln2"], a.norm),
                 shift_state=cch["cm_shift"])
-            return x + cm, {"tm_shift": tshift, "cm_shift": cshift,
-                            "wkv": wkv_s}
+            return layers.add_residual(x, cm), {
+                "tm_shift": tshift, "cm_shift": cshift, "wkv": wkv_s}
         if sub.mixer == "attn":
             mix, new_c = layers.decode_attention(
                 p["attn"], h, _attn_cfg(a, sub.window), cch, pos)
         else:
             mix, new_c = mamba.mamba_decode(p["mamba"], h, cch, a.mamba)
-        x = x + mix
+        x = layers.add_residual(x, mix)
         h2 = layers.norm(x, p["ln2"], a.norm)
         if sub.ffn == "moe":
             ffn, _ = moe.moe_apply(p["moe"], h2, a.moe,
                                    hidden_sharding=self.moe_hidden_sharding)
         else:
             ffn = layers.mlp(p["mlp"], h2, a.act)
-        return x + ffn, new_c
+        return layers.add_residual(x, ffn), new_c
 
     def decode_step(self, params, cache, tokens, pos):
         """tokens (B, 1); pos the tokens' index -> (logits (B, V), cache).

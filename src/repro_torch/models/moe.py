@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from ..obs.trace import annotate
-from .layers import Draw, is_dtensor, pin
+from .layers import Draw, is_dtensor, mlp, pin
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,10 +71,9 @@ def _route(probs, k: int, n_experts: int):
     from torch.distributed.tensor.experimental import local_map
     last = probs.dim() - 1
     pl = tuple(Replicate() if q == Shard(last) else q for q in probs.placements)
-    with annotate("moe._route"):
-        return local_map(lambda pr: _route_rows(pr, k, n_experts),
-                         out_placements=(pl, pl), in_placements=(pl,),
-                         redistribute_inputs=True)(probs)
+    return local_map(lambda pr: _route_rows(pr, k, n_experts),
+                     out_placements=(pl, pl), in_placements=(pl,),
+                     redistribute_inputs=True)(probs)
 
 
 def _expert_in(x, w):
@@ -157,9 +156,7 @@ def _moe_apply(p, x, cfg: MoeCfg, hidden_sharding):
     out = _expert_out(h, p["w_out"], comb.to(h.dtype))
 
     if cfg.n_shared > 0:
-        s = p["shared"]
-        hs = F.silu(x @ s["w_gate"]) * (x @ s["w_in"])
-        out = out + hs @ s["w_out"]
+        out = out + mlp(p["shared"], x, "swiglu")
 
     # load-balance aux loss (Switch-style): E * sum_e f_e * p_e
     frac = picked.mean(dim=(0, 1))                        # (E,) token fraction

@@ -30,7 +30,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from ..obs.trace import annotate
-from .layers import Draw, core_placements, is_dtensor, pin, traced_chunks
+from .layers import (Draw, core_placements, is_dtensor, pin, tp_einsum,
+                     traced_chunks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,9 +118,8 @@ def time_mix(p, x, cfg: RwkvCfg, shift_state=None, wkv_state=None,
 
     def mix(m):
         return x * m + xs * (1 - m)
-    r = mix(p["mix_r"]) @ p["w_r"]
-    k = mix(p["mix_k"]) @ p["w_k"]
-    v = mix(p["mix_v"]) @ p["w_v"]
+    r, k, v = (tp_einsum("btd,de->bte", mix(p[f"mix_{n}"]), p[f"w_{n}"])
+               for n in "rkv")
     xw = mix(p["mix_w"]).float()
     dd = (xw @ p["w_dd1"].float()) @ p["w_dd2"].float()
     w = torch.exp(-torch.exp(p["decay"][None, None] + dd))   # (B, T, D) in (0,1)
@@ -143,7 +143,7 @@ def time_mix(p, x, cfg: RwkvCfg, shift_state=None, wkv_state=None,
         out = out.reshape(B, H, T, K).transpose(1, 2).reshape(B, T, D)
     # group-norm-ish scale (float32) then output proj
     out = out * (1.0 + p["ln_x"])
-    out = out.to(x.dtype) @ p["w_o"]
+    out = tp_einsum("btd,de->bte", out.to(x.dtype), p["w_o"])
     return out, (x[:, -1:], new_wkv)
 
 
@@ -247,9 +247,9 @@ class WKV6(torch.autograd.Function):
 def channel_mix(p, x, shift_state=None):
     xs = _token_shift(x, shift_state)
     xk = x * p["cmix_k"] + xs * (1 - p["cmix_k"])
-    h = torch.square(F.relu(xk @ p["w_ck"]))
-    r = torch.sigmoid(x @ p["w_cr"])
-    return r * (h @ p["w_cv"]), x[:, -1:]
+    h = torch.square(F.relu(tp_einsum("btd,df->btf", xk, p["w_ck"])))
+    r = torch.sigmoid(tp_einsum("btd,de->bte", x, p["w_cr"]))
+    return r * tp_einsum("btf,fd->btd", h, p["w_cv"]), x[:, -1:]
 
 
 def init_rwkv_state(batch, d_model, cfg: RwkvCfg, dtype=torch.bfloat16,

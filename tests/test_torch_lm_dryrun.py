@@ -51,17 +51,18 @@ ROOT = Path(__file__).resolve().parents[1]
 SPEC = small_spec(2, 4)
 CELLS = (("olmo-1b", "train_4k"), ("rwkv6-3b", "decode_32k"))
 # The port's flops a rank of olmo-1b train_4k over JAX's `hlo.flops`, read
-# on this cell: 2.855e15 / 1.875e15 = 1.52.  JAX lowers attention through
-# `flash_attention_xla` on host devices (its `models/layers.py:101`; the
-# model never takes the Pallas kernel's dispatch): full key blocks, the
+# on this cell: 1.694e15 / 1.875e15 = 0.90 (1.52 while the MLP ran on
+# DTensor's own strategies, which on torch 2.13 computed the whole hidden
+# dim on every "model" rank).  Two parts pull apart.  JAX lowers attention
+# through `flash_attention_xla` on host devices (its `models/layers.py:101`;
+# the model never takes the Pallas kernel's dispatch): full key blocks, the
 # mask applied after the products, so each forward call counts 4 d T^2 a
-# head where K9's formula counts the causal half.  That part runs the other
-# way (JAX counts more), so the gap is the rest: the port runs each
-# sub-layer's forward three times under two-level remat (the forward, the
-# group's recompute, and inside it each sub-layer's checkpoint again),
-# where XLA's program runs it about twice.  The limit brackets the reading
-# by 0.1 either side.
-FLOPS_RATIO = (1.42, 1.62)
+# head where K9's formula counts the causal half (JAX counts more).  The
+# port runs each sub-layer's forward three times under two-level remat (the
+# forward, the group's recompute, and inside it each sub-layer's checkpoint
+# again), where XLA's program runs it about twice (the port counts more).
+# The limit brackets the reading by 0.1 either side.
+FLOPS_RATIO = (0.80, 1.00)
 # decode and prefill on the mesh against one device, of max |ref|: the
 # mesh tests' step tolerance (tests/test_torch_lm_mesh.py: STEP_TOL)
 MESH_TOL = 1e-5
@@ -206,16 +207,25 @@ def test_train_flops_within_the_stated_limit_of_jax(runs):
 
 
 def test_records_tag_the_gathers_jax_lacks(runs):
-    """The embedding table's and the logits' whole-vocab gathers are
-    reported under their own tags, in bytes and collective bytes; decode's
-    record holds K8's call nowhere (decode steps the state in plain torch)."""
+    """The gathers JAX lacks are gone: the embedding and the loss keep the
+    vocab split, as JAX's program does, and are reported under their own
+    tags, in bytes and collective bytes.  The lookup gathers only the
+    rank's vocab shard over "data" (its FSDP shards: V / 4 x D bf16, not
+    the whole table); the loss moves three all-reduces of a (B / 2) x 4095
+    float32 row statistic, not the logits.  The peak, 548.2 GB while the
+    loss gathered the whole-vocab float32 logits, reads 113.15 GB against
+    JAX's 114.7 GB.  Decode's record holds K8's call nowhere (decode steps
+    the state in plain torch)."""
     rec = runs["recs"][CELLS[0]]
     for tag in ("layers.embed_lookup", "layers.token_nll"):
-        assert rec["hlo"]["coll_by_source"][tag] > 0, tag
         assert rec["hlo"]["bytes_by_source"][tag] > 0, tag
-    # the logits' rows, gathered to the whole vocab: (B / 2) x 4096 x V f32
-    assert rec["hlo"]["coll_by_source"]["layers.token_nll"] >= \
-        128 * 4095 * 50304 * 4
+    coll = rec["hlo"]["coll_by_source"]
+    assert coll["layers.embed_lookup"] == 50304 // 4 * 2048 * 2
+    assert coll["layers.token_nll"] == 3 * 2 * 128 * 4095 * 4
+    peak = rec["memory"]["peak_per_device"]
+    assert peak < 548.2e9
+    assert peak <= 1.05 * runs["jax"]["/".join(CELLS[0])]["memory"][
+        "peak_per_device"], peak
     assert sum(rec["hlo"]["coll_by_kind"].values()) == rec["hlo"]["coll_bytes"]
     dec = runs["recs"][CELLS[1]]
     assert dec["kernels"] == {}

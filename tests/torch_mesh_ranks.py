@@ -455,5 +455,44 @@ def zero1_update(mesh) -> dict:
     return out
 
 
+def vocab_parallel(rank: int, n_ranks: int) -> dict:
+    """`layers.token_nll` on float32 logits (B, T, V) at JAX's
+    `logits_sharding` on a 2 x 2 mesh (rows over "data", V over "model")
+    and `layers.embed_lookup` on a table (V, D) at its spec (V over
+    "model", D over "data"), each against one device: the largest
+    difference over max |ref| of the values and of the gradients (a seeded
+    upstream gradient), and the lookup's output placements."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.models import layers
+    mesh = mesh_of((2, 2))
+    g = torch.Generator().manual_seed(0)
+    B, T, V, D = 4, 6, 10, 8
+    lf = torch.randn(B, T, V, generator=g) * 4
+    labels = torch.randint(0, V, (B, T), generator=g)
+    table = torch.randn(V, D, generator=g)
+    tokens = torch.randint(0, V, (B, T), generator=g)
+    up_nll, up_emb = torch.randn(B, T, generator=g), torch.randn(B, T, D,
+                                                                 generator=g)
+    rows = [Shard(0), Replicate()]
+    errs = {}
+    for name, fn, x, ints, up, x_pl in (
+            ("token_nll", layers.token_nll, lf, labels, up_nll,
+             [Shard(0), Shard(2)]),
+            ("embed_lookup", lambda t, i: layers.embed_lookup(t, i), table,
+             tokens, up_emb, [Shard(1), Shard(0)])):
+        x = x.clone().requires_grad_()
+        ref = fn(x, ints)
+        gref, = torch.autograd.grad((ref * up).sum(), x)
+        dx = distribute_tensor(x.detach(), mesh, x_pl).requires_grad_()
+        out = fn(dx, distribute_tensor(ints, mesh, rows))
+        if name == "embed_lookup":
+            errs["placements"] = repr(tuple(out.placements))
+        dup = distribute_tensor(up, mesh, rows)
+        gd, = torch.autograd.grad((out * dup).sum(), dx)
+        errs[name] = _share(out.full_tensor(), ref)
+        errs[name + " grad"] = _share(gd.full_tensor(), gref)
+    return dict(placements=errs.pop("placements"), errs=errs)
+
+
 def _share(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float((got - ref).abs().max() / max(float(ref.abs().max()), 1e-30))
