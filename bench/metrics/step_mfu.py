@@ -1,0 +1,13 @@
+"""The whole step's share of the card's peak, in %: the step's counted
+flops (`cells/<workload>.json`, `bench/flops.py`: one step of the plain
+reference) over the untraced window's wall time a step times the data
+sheet's peak for the dtype."""
+from bench.roofline import PEAK_FLOPS
+
+
+def read(ctx):
+    flops = ctx["cell"].get("flops_per_step")
+    if not flops or not ctx["steps"]:
+        return None
+    step_s = ctx["wall_s"] / ctx["steps"]
+    return 100.0 * flops / (step_s * PEAK_FLOPS[ctx["dtype"]])

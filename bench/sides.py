@@ -1,0 +1,99 @@
+"""The two sides of a run, built from the same `Inputs`: the program
+(`repro_torch`'s step, the CUDA kernels on a card) and the plain reference
+(`bench/reference`).  Both expose the same modules (`geometry`,
+`extrusion`, `dg2d`, `stepper`), so one function builds either, in any
+dtype: the control is the reference in the precision below the
+configuration's."""
+from __future__ import annotations
+
+import dataclasses
+import math
+import sys
+import types
+from pathlib import Path
+from typing import Callable
+
+import torch
+
+from .inputs import Inputs
+from .spec import ROOT
+
+
+def port_modules() -> types.SimpleNamespace:
+    """`repro_torch`'s core modules, from this checkout's `src/` and from
+    nowhere else."""
+    src = (ROOT / "src").resolve()
+    if not (src / "repro_torch").is_dir():
+        raise RuntimeError(f"no repro_torch package under {src}")
+    if str(src) not in sys.path:
+        sys.path.insert(0, str(src))
+    import repro_torch
+    found = Path(repro_torch.__file__).resolve().parent.parent
+    if found != src:
+        raise RuntimeError(f"repro_torch was imported from {found}, "
+                           f"not from {src}")
+    from repro_torch.core import dg2d, extrusion, geometry, stepper
+    return types.SimpleNamespace(dg2d=dg2d, extrusion=extrusion,
+                                 geometry=geometry, stepper=stepper)
+
+
+def reference_modules() -> types.SimpleNamespace:
+    from .reference import dg2d, extrusion, geometry, stepper
+    return types.SimpleNamespace(dg2d=dg2d, extrusion=extrusion,
+                                 geometry=geometry, stepper=stepper)
+
+
+@dataclasses.dataclass
+class Side:
+    """One side's model, built from the inputs: ``advance(state)`` is one
+    step with ``forcing_at(state.time)``."""
+    geom: object
+    vg: object
+    cfg: object
+    state: object
+    forcing_at: Callable
+    advance: Callable
+
+
+def build(mods: types.SimpleNamespace, inp: Inputs, dtype: torch.dtype,
+          device: torch.device) -> Side:
+    case = inp.case
+    geom = mods.geometry.geom2d_from_mesh(inp.mesh, dtype=dtype, device=device)
+    z = dict(dtype=dtype, device=device)
+    vg = mods.extrusion.VGrid(b=torch.as_tensor(inp.b, **z), nl=inp.nl)
+    cfg = mods.stepper.OceanConfig(
+        nl=inp.nl, dt=case["dt"], m_2d=inp.m_2d, eos_kind=case["eos_kind"],
+        use_gls=True, coriolis_f=case["coriolis_f"])
+    st = mods.stepper.init_state(geom, vg, T0=case["T0"], S0=case["S0"])
+    zero2 = torch.zeros((3, geom.nt), **z)
+    st = dataclasses.replace(
+        st, T=inp.T.to(dtype),
+        ext=mods.dg2d.State2D(inp.eta.to(dtype), zero2, zero2))
+    forcing_at = _forcing(mods, inp, z, geom.nt)
+
+    def advance(s):
+        return mods.stepper.step(geom, vg, cfg, s, forcing_at(s.time))
+    return Side(geom=geom, vg=vg, cfg=cfg, state=st, forcing_at=forcing_at,
+                advance=advance)
+
+
+def _forcing(mods, inp: Inputs, z: dict, nt: int) -> Callable:
+    """forcing_at(time): the configuration's forcing at a time held on the
+    device (no host sync), or no forcing."""
+    fc = inp.case.get("forcing")
+    if fc is None:
+        none = mods.stepper.Forcing3D()
+        return lambda t: none
+    tau_x = torch.full((3, nt), fc["tau"][0], **z)
+    tau_y = torch.full((3, nt), fc["tau"][1], **z)
+    T_open = torch.full((inp.nl, 6, nt), fc["T_open"], **z)
+    S_open = torch.full((inp.nl, 6, nt), fc["S_open"], **z)
+    ones = torch.ones((3, nt), **z)
+
+    def forcing_at(t):
+        eta_bc = inp.tide_amp * torch.sin(2 * math.pi * t
+                                          / fc["tide_period"]) * ones
+        return mods.stepper.Forcing3D(
+            forcing2d=mods.dg2d.Forcing2D(eta_open=eta_bc),
+            tau_x=tau_x, tau_y=tau_y, T_open=T_open, S_open=S_open)
+    return forcing_at
