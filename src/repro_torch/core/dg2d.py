@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from . import geometry as G
+from ..obs import trace
 
 RHO0 = 1025.0
 
@@ -216,27 +217,29 @@ def run_external(geom: G.Geom2D, b: torch.Tensor, st0: State2D, dt: float,
     per_stage = exchange_fn is not None and exchange_period == 0
 
     def rhs(s):
-        if per_stage:
-            s = exchange_fn(s)
-        r, eflux = external_rhs(geom, b, s, forcing, f3d2d_x, f3d2d_y, h_min,
-                                return_flux=True)
-        if coriolis_f != 0.0 or bottom_cd > 0.0:
-            r = r + standalone_extra_rhs(geom, b, s, coriolis_f, bottom_cd,
-                                         h_min)
-        return r, eflux
+        with trace.annotate("burst.rhs", profiler=False):
+            if per_stage:
+                s = exchange_fn(s)
+            r, eflux = external_rhs(geom, b, s, forcing, f3d2d_x, f3d2d_y,
+                                    h_min, return_flux=True)
+            if coriolis_f != 0.0 or bottom_cd > 0.0:
+                r = r + standalone_extra_rhs(geom, b, s, coriolis_f,
+                                             bottom_cd, h_min)
+            return r, eflux
 
     w0, w1, w2 = _SSP_W
 
     def substep(s):
-        r0, ef0 = rhs(s)
-        s1 = s + dts * r0
-        r1, ef1 = rhs(s1)
-        s2 = 0.75 * s + 0.25 * (s1 + dts * r1)
-        r2, ef2 = rhs(s2)
-        s3 = (1.0 / 3.0) * s + (2.0 / 3.0) * (s2 + dts * r2)
-        return s3, (w0 * s.qx + w1 * s1.qx + w2 * s2.qx,
-                    w0 * s.qy + w1 * s1.qy + w2 * s2.qy,
-                    w0 * ef0 + w1 * ef1 + w2 * ef2)
+        with trace.annotate("burst.substep", profiler=False):
+            r0, ef0 = rhs(s)
+            s1 = s + dts * r0
+            r1, ef1 = rhs(s1)
+            s2 = 0.75 * s + 0.25 * (s1 + dts * r1)
+            r2, ef2 = rhs(s2)
+            s3 = (1.0 / 3.0) * s + (2.0 / 3.0) * (s2 + dts * r2)
+            return s3, (w0 * s.qx + w1 * s1.qx + w2 * s2.qx,
+                        w0 * s.qy + w1 * s1.qy + w2 * s2.qy,
+                        w0 * ef0 + w1 * ef1 + w2 * ef2)
 
     s = st0
     accs = []

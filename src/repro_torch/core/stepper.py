@@ -378,17 +378,20 @@ def step(geom: G.Geom2D, vg: VGrid, cfg: OceanConfig, st: OceanState,
     """One full internal step: IMEX midpoint (stage 1 implicit over dt/2,
     stage 2 explicit over dt with midpoint fluxes).  The exchange hooks are
     supplied by the distributed runtime (distributed/ocean.py)."""
-    turb0 = turbulence.TurbState(st.turb_k, st.turb_eps, st.nu_t, st.kappa_t)
-    with trace.annotate("imex.stage1"):
-        s1 = stage(geom, vg, cfg, st, st.ux, st.uy, st.T, st.S, st.ext.eta,
-                   turb0, cfg.dt / 2, max(cfg.m_2d // 2, 1),
-                   cfg.implicit_stage1, forcing,
-                   exchange2d=exchange2d, exchange_field=exchange_field)
-    with trace.annotate("imex.stage2"):
-        s2 = stage(geom, vg, cfg, st, s1.ux, s1.uy, s1.T, s1.S, s1.ext.eta,
-                   s1.turb, cfg.dt, cfg.m_2d, False, forcing, turb_base=turb0,
-                   exchange2d=exchange2d, exchange_field=exchange_field)
-    return OceanState(
-        ext=s2.ext, ux=s2.ux, uy=s2.uy, T=s2.T, S=s2.S,
-        turb_k=s2.turb.k, turb_eps=s2.turb.eps, nu_t=s2.turb.nu_t,
-        kappa_t=s2.turb.kappa_t, time=st.time + cfg.dt)
+    with trace.annotate("ocean.step", profiler=False):
+        turb0 = turbulence.TurbState(st.turb_k, st.turb_eps, st.nu_t,
+                                     st.kappa_t)
+        with trace.annotate("imex.stage1"):
+            s1 = stage(geom, vg, cfg, st, st.ux, st.uy, st.T, st.S,
+                       st.ext.eta, turb0, cfg.dt / 2, max(cfg.m_2d // 2, 1),
+                       cfg.implicit_stage1, forcing,
+                       exchange2d=exchange2d, exchange_field=exchange_field)
+        with trace.annotate("imex.stage2"):
+            s2 = stage(geom, vg, cfg, st, s1.ux, s1.uy, s1.T, s1.S,
+                       s1.ext.eta, s1.turb, cfg.dt, cfg.m_2d, False, forcing,
+                       turb_base=turb0, exchange2d=exchange2d,
+                       exchange_field=exchange_field)
+        return OceanState(
+            ext=s2.ext, ux=s2.ux, uy=s2.uy, T=s2.T, S=s2.S,
+            turb_k=s2.turb.k, turb_eps=s2.turb.eps, nu_t=s2.turb.nu_t,
+            kappa_t=s2.turb.kappa_t, time=st.time + cfg.dt)

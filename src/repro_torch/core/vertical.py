@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from . import geometry as G
+from ..obs import trace
 from .geometry import PHI_VQ, lincomb
 
 # vertical P1 mass on [-1,1]: int phi_a phi_b dzeta
@@ -126,16 +127,17 @@ def mass_apply3d(geom: G.Geom2D, jz: torch.Tensor,
 def mass_solve3d(geom: G.Geom2D, jz: torch.Tensor,
                  r: torch.Tensor) -> torch.Tensor:
     """M^{-1} r: MZ^{-1} (x) WM[jz]^{-1}; WM[jz]^{-1} via batched 3x3 solve."""
-    rt, rb = r[..., 0:3, :], r[..., 3:6, :]
-    st = 2.0 * rt - rb                               # MZ^{-1} = [[2,-1],[-1,2]]
-    sb = -rt + 2.0 * rb
-    wmT = wmass(geom, G.vol_interp(jz)).permute(2, 0, 1)   # (nt, 3, 3)
+    with trace.annotate("vertical.mass_solve3d", profiler=False):
+        rt, rb = r[..., 0:3, :], r[..., 3:6, :]
+        st = 2.0 * rt - rb                       # MZ^{-1} = [[2,-1],[-1,2]]
+        sb = -rt + 2.0 * rb
+        wmT = wmass(geom, G.vol_interp(jz)).permute(2, 0, 1)   # (nt, 3, 3)
 
-    def solve3(v):
-        vT = v.movedim(-1, -2)                       # (..., nt, 3)
-        out = torch.linalg.solve(wmT, vT[..., None])[..., 0]
-        return out.movedim(-1, -2)
-    return torch.cat([solve3(st), solve3(sb)], dim=-2)
+        def solve3(v):
+            vT = v.movedim(-1, -2)                   # (..., nt, 3)
+            out = torch.linalg.solve(wmT, vT[..., None])[..., 0]
+            return out.movedim(-1, -2)
+        return torch.cat([solve3(st), solve3(sb)], dim=-2)
 
 
 def sigma3_horizontal(geom: G.Geom2D, H: torch.Tensor, nl: int,

@@ -25,9 +25,11 @@ Three families of signatures, as in the JAX package:
 
 Every call goes through `_dispatch(op, backend)`, which adds one to the
 default metrics registry's ``kernel_dispatch{op=..., backend=...}`` counter
-and opens the range ``kops.<op>.<backend>`` (`obs/trace.py`).  The body of
-an op on ``plain`` or ``cuda`` (the kernel's plain version, or the CUDA
-launch with its operands made contiguous) runs inside `_body`: under
+and opens the span ``kops.<op>.<backend>`` (`obs/trace.py`): a range on a
+profiler's timeline only while a profiler is active, and a recorded span
+inside `trace.recording()`.  The body of an op on ``plain`` or ``cuda``
+(the kernel's plain version, or the CUDA launch with its operands made
+contiguous) runs inside `_body`: under
 `tapped(tap)` that is ``tap(kernel, operands)``, through which the dry runs
 (`launch/ocean_dryrun.py`, `launch/lm_dryrun.py`) count the kernel by its
 formula (`roofline/kernels.py`) and none of the ops inside, so a step costs
@@ -113,7 +115,7 @@ def weight() -> int:
 
 @contextlib.contextmanager
 def _dispatch(op: str, bk: Backend):
-    """Count the dispatch and name it in profiler timelines."""
+    """Count the dispatch and open its span (`obs/trace.py`)."""
     _metrics.default().counter("kernel_dispatch", op=op, backend=bk.value).inc()
     if bk is not Backend.CUDA:
         LAUNCHES[(KERNEL[op], bk.value)] += 1

@@ -12,6 +12,7 @@ import json
 import math
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -119,6 +120,153 @@ def test_annotate_names_profiler_ranges(wave):
     assert calls.pop("stage.turbulence_final") == 1     # explicit stage only
     assert set(calls.values()) == {2}
     assert all(r["launches"] == 0 for r in rows.values())   # no card
+
+
+RECORDER_ONLY = {"ocean.step", "burst.substep", "burst.rhs",
+                 "vertical.mass_solve3d"}
+
+
+def _fields(st):
+    out = {f.name: getattr(st, f.name) for f in dataclasses.fields(st)
+           if f.name != "ext"}
+    return {**out, **{f.name: getattr(st.ext, f.name)
+                      for f in dataclasses.fields(st.ext)}}
+
+
+def test_spans_off_record_nothing_and_open_no_profiler_range(wave,
+                                                             monkeypatch):
+    """With recording off and no profiler, a step records no span, counts
+    no sync and never opens a record_function; open_ranges still names the
+    open spans."""
+    geom, vg, cfg, st = wave
+    trace.drain()
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) opened")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    stepper.step(geom, vg, cfg, st)
+    assert trace.spans() == [] and trace.sync_counts() == {}
+    with trace.annotate("stage.a"), trace.annotate("b.c", profiler=False):
+        assert trace.open_ranges() == ("stage.a", "b.c")
+    assert trace.open_ranges() == ()
+
+
+def test_spans_of_one_step_nest_and_change_no_bit(wave):
+    """Recording on: one ocean.step, m/2 + m burst sub-steps and three RHS
+    evaluations each, every span under the step with its parent as in the
+    stepper, self time its duration less its children's; the state is
+    bitwise the one of a step without recording."""
+    geom, vg, cfg, st = wave
+    plain = stepper.step(geom, vg, cfg, st)
+    with trace.recording():
+        recorded = stepper.step(geom, vg, cfg, st)
+    spans = trace.drain()
+    assert trace.spans() == []
+    assert len(_fields(plain)) == 12
+    for name, value in _fields(plain).items():
+        assert torch.equal(value, _fields(recorded)[name]), name
+
+    names = [s.name for s in spans]
+    m = cfg.m_2d
+    assert names[0] == "ocean.step" and names.count("ocean.step") == 1
+    assert names.count("burst.substep") == m // 2 + m
+    assert names.count("burst.rhs") == 3 * (m // 2 + m)
+    assert names.count("vertical.mass_solve3d") == 2
+    parent_of = {"imex.stage1": "ocean.step", "imex.stage2": "ocean.step",
+                 "burst.substep": "stage.external_burst",
+                 "burst.rhs": "burst.substep"}
+    for s in spans:
+        assert s.step == 0 and s.end_ns >= s.start_ns
+        if s.parent >= 0:
+            p = spans[s.parent]
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+        if s.name in parent_of:
+            assert spans[s.parent].name == parent_of[s.name]
+        if s.name.startswith("stage."):
+            assert spans[s.parent].name.startswith("imex.")
+        if s.name.startswith("kops.") or s.name == "vertical.mass_solve3d":
+            assert spans[s.parent].name.startswith("stage.")
+    kids = {}
+    for s in spans:
+        kids.setdefault(s.parent, []).append(s)
+    for i, (s, own) in enumerate(zip(spans, trace.self_ns(spans))):
+        cover = sum(k.end_ns - k.start_ns for k in kids.get(i, ()))
+        assert own == s.end_ns - s.start_ns - cover
+
+
+def test_self_time_counts_overlapping_children_once():
+    S = trace.Span
+    spans = [S("a", 0, 100, -1, 0, 0), S("b", 10, 40, 0, 0, 0),
+             S("c", 30, 60, 0, 0, 0), S("d", 90, 120, 0, 0, 0),
+             S("e", 35, 38, 1, 0, 0), S("f", 50, None, 0, 0, 0)]
+    assert trace.self_ns(spans) == [100 - 50 - 10, 30 - 3, 30, 30, 3, 0]
+
+
+def test_span_clock_is_the_profilers(wave):
+    """Under a CPU profiler, the stage spans' starts lie within 200 us of
+    the profiler's own records of those ranges: the median over the
+    step's 19, since a thread the OS deschedules between the two stamps
+    reads one span tens of ms off (the perf counter itself is ~1.8e9 s
+    from the profiler's clock)."""
+    geom, vg, cfg, st = wave
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace.annotate("obs.warm"):
+            pass
+        with trace.recording():
+            stepper.step(geom, vg, cfg, st)
+    spans = trace.drain()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.name().startswith("stage.")]
+    starts = {}
+    for e in events:
+        starts.setdefault(e.name(), []).append(e.start_ns())
+    mine = [s for s in spans if s.name.startswith("stage.")]
+    assert len(mine) == len(events) >= 19
+    off = sorted(min(abs(t - s.start_ns) for t in starts[s.name])
+                 for s in mine)
+    assert off[len(off) // 2] < 200_000, off
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert "imex.stage1" in names and not names & RECORDER_ONLY
+
+
+def test_syncs_count_under_the_innermost_span():
+    """PyTorch's sync warnings count against the innermost open span, every
+    one of them; other warnings pass through; nothing counts once off."""
+    text = trace.SYNC_WARNING + " (Triggered internally at Copy.cpp:1.)"
+    with trace.recording():
+        with trace.annotate("ocean.step", profiler=False):
+            with trace.annotate("vertical.mass_solve3d", profiler=False):
+                for _ in range(2):
+                    warnings.warn(text)
+            warnings.warn(text)
+        warnings.warn(text)
+        with pytest.warns(UserWarning, match="other"):
+            warnings.warn("other")
+    with pytest.warns(UserWarning, match=trace.SYNC_WARNING):
+        warnings.warn(text)
+    assert trace.sync_counts() == {"vertical.mass_solve3d": 2,
+                                   "ocean.step": 1, trace.NO_SPAN: 1}
+    assert [s.syncs for s in trace.drain()] == [1, 2]
+    assert trace.sync_counts() == {}
+
+
+def test_recorded_spans_pop_only_the_nvtx_ranges_they_pushed(monkeypatch):
+    """A recorded span inside which CUDA first initialises pushed no NVTX
+    range, so it pops none; one opened after pops its own."""
+    stack, ready = [], [False]
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: ready[0])
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", stack.append)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_pop", stack.pop)
+    with trace.recording():
+        with trace.annotate("stage.a"):
+            ready[0] = True
+            with trace.annotate("stage.b"):
+                assert stack == ["stage.b"]
+            with trace.annotate("burst.c", profiler=False):
+                assert stack == []
+        assert stack == []
+    trace.drain()
 
 
 def test_trace_session_is_opt_in(tmp_path, monkeypatch):
