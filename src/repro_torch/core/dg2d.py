@@ -12,15 +12,19 @@ Boundary conditions (via ghost states on the edge quadrature points):
   WALL: eta_ext = eta_int, Q_ext = Q_int - 2 (Q.n) n   (weak impermeability)
   OPEN: eta_ext = eta_bc(t), Q_ext = Q_int             (radiative forcing)
 
-`run_external` advances m sub-steps of SSPRK(3,3) in a Python loop.
+`run_external` advances m sub-steps of SSPRK(3,3) in a Python loop; on one
+card (CUDA tensors, no halo exchange, no stream capture or dispatch mode
+active) it captures that loop as one CUDA graph a key and replays it.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from . import geometry as G
 from ..obs import trace
@@ -209,7 +213,43 @@ def run_external(geom: G.Geom2D, b: torch.Tensor, st0: State2D, dt: float,
         avoiding; needs a 3j-deep halo).  The averages are then taken over
         each group of j sub-steps first and over the m/j group means after,
         the JAX package's order of summation.
+
+    Where `_graphable` holds, the loop runs as a CUDA graph (`_GRAPHS`):
+    a key's first call eagerly, its second captures and replays, later ones
+    replay; the result is bitwise the loop's, and its tensors are the
+    caller's own.  `trace.counts()` reads "burst.eager", "burst.capture"
+    and "burst.replay".
     """
+    args = (geom, b, st0, dt, m, forcing, f3d2d_x, f3d2d_y, coriolis_f,
+            bottom_cd, h_min)
+    if not _graphable(st0, b, f3d2d_x, exchange_fn):
+        trace.count("burst.eager")
+        return _run_eager(*args, exchange_fn, exchange_period)
+    ins = _inputs(st0, forcing, f3d2d_x, f3d2d_y)
+    key = _key(geom, b, ins, dt, m, coriolis_f, bottom_cd, h_min)
+    g = _GRAPHS.entry(key)
+    g.calls += 1
+    if g.calls == 1:      # the warm-up: lazy inits, the allocator's blocks
+        trace.count("burst.eager")
+        return _run_eager(*args)
+    if g.graph is None:
+        g.capture(_GRAPHS.inputs_of(key[0]), ins, geom, b, dt, m,
+                  coriolis_f, bottom_cd, h_min)
+        trace.count("burst.capture")
+    else:
+        for name, x in ins.items():
+            g.inputs[name].copy_(x)
+        trace.count("burst.replay")
+    g.graph.replay()
+    s, *rest = g.out
+    return ExternalResult(State2D(s.eta.clone(), s.qx.clone(), s.qy.clone()),
+                          *(t.clone() for t in rest))
+
+
+def _run_eager(geom, b, st0, dt, m, forcing, f3d2d_x, f3d2d_y, coriolis_f,
+               bottom_cd, h_min, exchange_fn=None,
+               exchange_period=0) -> ExternalResult:
+    """`run_external`'s loop, on the host (and the body a graph captures)."""
     if f3d2d_x is None:
         f3d2d_x = torch.zeros_like(st0.qx)
         f3d2d_y = torch.zeros_like(st0.qy)
@@ -266,6 +306,119 @@ def run_external(geom: G.Geom2D, b: torch.Tensor, st0: State2D, dt: float,
     f2d_y = (s.qy - st0.qy) / dt - G.minv_apply(geom, f3d2d_y)
     mean = lambda xs: torch.stack(xs).mean(dim=0)
     return ExternalResult(s, mean(qxs), mean(qys), f2d_x, f2d_y, mean(efs))
+
+
+# --- the burst as one CUDA graph ----------------------------------------------
+# graphs kept: a step's two bursts (dt/2 with m/2 sub-steps, dt with m), and
+# the two of a recovery ladder's changed dt
+GRAPHS_KEPT = 4
+_FORCING = tuple(f.name for f in dataclasses.fields(Forcing2D))
+
+
+def _card_tensors(tensors) -> bool:
+    return all(t.is_cuda and not t.requires_grad for t in tensors)
+
+
+def _graphable(st0: State2D, b: torch.Tensor, f3d2d_x, exchange_fn) -> bool:
+    """Whether the burst may run as a CUDA graph: CUDA tensors that need no
+    grad, no halo exchange (it goes through the host), no dispatch mode
+    active (the dry runs trace the step under one) and no stream capture
+    already running."""
+    ts = (st0.eta, st0.qx, st0.qy, b)
+    return (exchange_fn is None
+            and _card_tensors(ts if f3d2d_x is None else ts + (f3d2d_x,))
+            and _get_current_dispatch_mode() is None
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def _inputs(st0: State2D, forcing: Forcing2D, f3d2d_x, f3d2d_y) -> dict:
+    """The tensors a replay copies in, by name: the state, F_3D->2D if
+    given, the forcing fields present."""
+    ins = {"eta": st0.eta, "qx": st0.qx, "qy": st0.qy}
+    if f3d2d_x is not None:
+        ins["f3d2d_x"], ins["f3d2d_y"] = f3d2d_x, f3d2d_y
+    for name in _FORCING:
+        x = getattr(forcing, name)
+        if x is not None:
+            ins[name] = x
+    return ins
+
+
+def _where(t: torch.Tensor) -> tuple:
+    return (t.data_ptr(), t.shape, t.stride(), t.dtype, t.device)
+
+
+def _key(geom: G.Geom2D, b: torch.Tensor, ins: dict, dt, m, coriolis_f,
+         bottom_cd, h_min) -> tuple:
+    """((what the graph reads in place, the inputs it copies in), its
+    scalars): the geometry's and b's tensors by address, the inputs by name
+    and shape."""
+    reads = tuple(_where(getattr(geom, f.name))
+                  for f in dataclasses.fields(geom)) + (_where(b),)
+    shapes = tuple((k, x.shape, x.dtype, x.device) for k, x in ins.items())
+    return ((reads, shapes),
+            (float(dt), int(m), float(coriolis_f), float(bottom_cd),
+             float(h_min)))
+
+
+class _Graph:
+    """One key's burst: its calls so far, and once captured, the graph, its
+    static inputs, its outputs and the tensors it reads in place (held, so
+    that their addresses stay theirs)."""
+    __slots__ = ("calls", "graph", "inputs", "out", "reads")
+
+    def __init__(self):
+        self.calls = 0
+        self.graph = self.inputs = self.out = self.reads = None
+
+    def capture(self, inputs: Optional[dict], ins: dict, geom, b, dt, m,
+                coriolis_f, bottom_cd, h_min):
+        """Capture the eager loop on static inputs: ``inputs`` (another
+        key's, refilled from ``ins``) or copies of ``ins``."""
+        if inputs is None:
+            inputs = {k: x.clone() for k, x in ins.items()}
+        else:
+            for k, x in ins.items():
+                inputs[k].copy_(x)
+        st = State2D(inputs["eta"], inputs["qx"], inputs["qy"])
+        forcing = Forcing2D(**{k: inputs[k] for k in _FORCING if k in inputs})
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = _run_eager(geom, b, st, dt, m, forcing,
+                             inputs.get("f3d2d_x"), inputs.get("f3d2d_y"),
+                             coriolis_f, bottom_cd, h_min)
+        self.graph, self.inputs, self.out = graph, inputs, out
+        self.reads = (geom, b)
+
+
+class _BurstGraphs:
+    """The bursts by key, the least recently used dropped beyond
+    ``limit``."""
+
+    def __init__(self, limit: int):
+        self.limit = limit
+        self.entries: collections.OrderedDict = collections.OrderedDict()
+
+    def entry(self, key) -> _Graph:
+        g = self.entries.get(key)
+        if g is None:
+            g = self.entries[key] = _Graph()
+            while len(self.entries) > self.limit:
+                self.entries.popitem(last=False)
+        else:
+            self.entries.move_to_end(key)
+        return g
+
+    def inputs_of(self, io) -> Optional[dict]:
+        """The static inputs of a captured key with the same reads and
+        inputs (the step's two bursts share one set), or None."""
+        for (io_, _), g in self.entries.items():
+            if io_ == io and g.inputs is not None:
+                return g.inputs
+        return None
+
+
+_GRAPHS = _BurstGraphs(GRAPHS_KEPT)
 
 
 def cfl_dt(geom: G.Geom2D, b: torch.Tensor, cfl: float = 0.25) -> float:

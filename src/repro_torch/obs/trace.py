@@ -42,6 +42,11 @@ events of those prefixes as the profiler's copies of the ranges, treats
 ``stage.*`` ranges as never nested, and the ocean dry run maps each
 ``kops.*`` name to its kernel.
 
+**Counters.** ``count(name)`` adds one to a named counter and ``counts()``
+reads them all, recording or not: ``burst.eager``, ``burst.capture`` and
+``burst.replay`` say how each external burst ran (`core/dg2d.py`
+``run_external``: the host's loop, a CUDA graph's capture, its replay).
+
 ``trace_session`` wraps ``torch.profiler.profile`` and writes a Chrome
 trace (``trace.json``) into the run directory.  It is opt-in: enabled
 explicitly, or via the ``REPRO_TRACE=1`` environment variable (run
@@ -69,6 +74,9 @@ NO_SPAN = "(no span)"
 
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _clock = time.perf_counter_ns
+# named counts since the process started, kept whether or not anything
+# records (``count``, ``counts``)
+_COUNTS: dict = {}
 
 
 class Span(NamedTuple):
@@ -144,6 +152,17 @@ class annotate:
             rec = [self.name, start, None, parent[6], parent[4], 0, i]
         records.append(rec)
         self._rec = rec
+
+
+def count(name: str) -> None:
+    """One more of the event ``name`` (``counts()`` reads it; no profiler
+    or recording needed)."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + 1
+
+
+def counts() -> dict:
+    """{counter name: events since the process started}."""
+    return dict(_COUNTS)
 
 
 def open_ranges() -> tuple:

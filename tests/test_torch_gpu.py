@@ -10,7 +10,8 @@ against the plain backend, two steps of the small GBR case (every forcing
 term) through cuda against plain, a per-call step against a fused one, and
 the step boundary with its dispatch counts, and the resilient campaign
 (two fault-free legs bitwise, a cuda -> CPU -> cuda restore bitwise, a
-poisoned leg bitwise to the fault-free one), and the ocean dry run's record
+poisoned leg bitwise to the fault-free one), the external burst's CUDA
+graph bitwise against the host's loop, and the ocean dry run's record
 of a small cell on the card against its record on the CPU.
 
 Run on a machine with a CUDA card (no JAX needed):
@@ -747,6 +748,57 @@ def test_campaign_poison_leg_bitwise(cuda, tmp_path):
     out, runner = _campaign_leg(case, tmp_path, "nan", plan=plan)
     assert len(plan.log) == 1 and runner.stats["retries"] == 1
     assert bitwise_equal(out, base)
+
+
+# --- the external burst as a CUDA graph ----------------------------------------
+def _burst_fields(r):
+    return (r.state.eta, r.state.qx, r.state.qy, *r[1:])
+
+
+def test_burst_graph_bitwise_to_the_loop(cuda, monkeypatch):
+    """The graphed burst, over 3 calls of each of a step's two keys (dt/2
+    with m/2 sub-steps, dt with m) with new inputs each call, is
+    torch.equal to the host's loop in every field; results returned earlier
+    stay as they were; the counter reads 2 eager, 2 captures, 2 replays."""
+    from repro_torch.core import dg2d, geometry, mesh2d
+    from repro_torch.obs import trace
+    monkeypatch.setattr(dg2d, "_GRAPHS", dg2d._BurstGraphs(dg2d.GRAPHS_KEPT))
+    geom = geometry.geom2d_from_mesh(
+        mesh2d.channel_mesh(50, 30, 3000.0, 900.0, seed=2),
+        dtype=torch.float64, device=cuda)
+    assert geom.nt == 3000 and float(geom.openb.sum()) > 0
+    b = 10.0 + 10.0 * geom.node_x / 3000.0
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    rnd = lambda s: s * torch.randn((3, geom.nt), generator=gen,
+                                    dtype=torch.float64, device=cuda)
+    ones = torch.ones((3, geom.nt), dtype=torch.float64, device=cuda)
+    paths = ("burst.eager", "burst.capture", "burst.replay")
+    before = [trace.counts().get(k, 0) for k in paths]
+    m, kept = 8, []
+    dt = m * dg2d.cfl_dt(geom, b)            # a stable sub-step
+    for call in range(3):
+        for dtau, m_sub in ((dt / 2, m // 2), (dt, m)):
+            st0 = dg2d.State2D(rnd(0.01), rnd(0.5), rnd(0.5))
+            f3x, f3y = rnd(1e-3), rnd(1e-3)
+            forcing = dg2d.Forcing2D(
+                eta_open=0.5 * torch.sin(torch.tensor(0.3 * call + dtau,
+                                                      device=cuda)) * ones)
+            out = dg2d.run_external(geom, b, st0, dtau, m_sub, forcing, f3x,
+                                    f3y, h_min=0.05)
+            ref = dg2d._run_eager(geom, b, st0, dtau, m_sub, forcing, f3x,
+                                  f3y, 0.0, 0.0, 0.05)
+            got = _burst_fields(out)
+            assert all(bool(torch.isfinite(x).all()) for x in got)
+            assert all(torch.equal(x, y) for x, y in zip(got, _burst_fields(ref)))
+            kept.append((got, [x.clone() for x in got]))
+    for got, copy in kept:
+        assert all(torch.equal(x, y) for x, y in zip(got, copy))
+    after = [trace.counts().get(k, 0) for k in paths]
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
+    keys = list(dg2d._GRAPHS.entries)
+    assert len(keys) == 2 and keys[0][0] == keys[1][0]
+    e0, e1 = dg2d._GRAPHS.entries.values()
+    assert e0.inputs is e1.inputs          # the two keys share their inputs
 
 
 # ---------------------------------------------------------------------------
