@@ -32,7 +32,8 @@ RANGES = ("imex.stage1", "imex.stage2", "stage.edge_cache",
           "stage.pressure_gradient", "stage.flux_prediction",
           "stage.external_burst", "stage.turbulence", "stage.w_solve",
           "stage.horizontal_rhs", "stage.momentum_update",
-          "stage.tracer_update", "stage.turbulence_final")
+          "stage.tracer_update", "stage.turbulence_final",
+          "halo.exchange")
 
 
 def forbidden_modules() -> list:
@@ -130,6 +131,17 @@ def _breakdown(tr) -> dict:
     return {"device_ops": top(by_name), "idle_gaps": top(by_range)}
 
 
+def load(workload: str, overrides: dict = None) -> tuple:
+    """(configuration, traffic, cell, dtype) of ``workload``, with
+    ``overrides`` patched into the configuration and the traffic."""
+    wl = spec.workload(workload)
+    case = dict(spec.config(wl["config"]))
+    traffic = dict(spec.traffic(wl["traffic"]))
+    for key, value in (overrides or {}).items():
+        (traffic if key in traffic else case)[key] = value
+    return case, traffic, spec.cell(workload), getattr(torch, case["dtype"])
+
+
 def run_cell(workload: str, seed: int, seconds: float, traced: bool,
              device: torch.device, t_start: float, overrides: dict = None,
              port=None) -> dict:
@@ -138,13 +150,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     ``overrides`` patches the configuration and the traffic (the CPU tests
     run a small mesh); ``port`` replaces the program's modules (the tests
     break the timed path underneath)."""
-    wl = spec.workload(workload)
-    case = dict(spec.config(wl["config"]))
-    traffic = dict(spec.traffic(wl["traffic"]))
-    cell = spec.cell(workload)
-    for key, value in (overrides or {}).items():
-        (traffic if key in traffic else case)[key] = value
-    dtype = getattr(torch, case["dtype"])
+    case, traffic, cell, dtype = load(workload, overrides)
     port = port or sides.port_modules()
 
     # --- set-up ----------------------------------------------------------
@@ -159,8 +165,6 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     sync(device)
     marks.append(("warm_steps", time.perf_counter()))
     setup_s = marks[-1][1] - t_start
-    setup_parts = {name: t - prev for (name, t), prev in
-                   zip(marks, [t_start] + [t for _, t in marks[:-1]])}
 
     # --- the measured window ---------------------------------------------
     clock = StepClock(device)
@@ -187,9 +191,32 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     if found:
         raise SystemExit(f"forbidden modules loaded: {', '.join(found)}")
 
-    # --- the plain reference over the same steps ---------------------------
     prog_fields = compare.fields(st)
     del prog, st
+    ctx = {"dtype": case["dtype"], "nl": inp.nl, "nt": inp.mesh.nt,
+           "m_2d": inp.m_2d, "dt": case["dt"], "cell": cell, "steps": n,
+           "wall_s": wall_s, "step_ms": step_ms, "trace": tr,
+           "launches": counts}
+    dev = {"platform": "gpu" if device.type == "cuda" else device.type,
+           "kind": (torch.cuda.get_device_name(device)
+                    if device.type == "cuda" else "cpu"),
+           "count": 1, "memory_peak_bytes": peak,
+           "power_limit_w": (power_limit_w() if device.type == "cuda"
+                             else None)}
+    if traced:
+        dev["busy_s"] = tr.busy_ns() / 1e9
+        dev["window_s"] = tr.window_s
+    return conclude(workload, inp, dtype, device, prog_fields, steps, ctx,
+                    setup_s, marks, t_start, dev)
+
+
+def conclude(workload: str, inp, dtype: torch.dtype, device: torch.device,
+             prog_fields: dict, steps: int, ctx: dict, setup_s: float,
+             marks: list, t_start: float, dev: dict) -> dict:
+    """The plain reference over the ``steps`` the program made, the
+    comparison of ``prog_fields`` (the program's final state, its own
+    freed) with it, the cell's metrics from ``ctx``, and the result line's
+    object."""
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -198,46 +225,37 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     rst = ref.state
     for _ in range(steps):
         rst = ref.advance(rst)
-    gap = compare.gaps(prog_fields, compare.fields(rst), cell["limits"])
-    correct, checks = compare.judge(gap, cell["limits"])
+    limits = ctx["cell"]["limits"]
+    gap = compare.gaps(prog_fields, compare.fields(rst), limits)
+    correct, checks = compare.judge(gap, limits)
     print(f"reference: {steps} steps in {time.perf_counter() - t_ref:.3f} s",
           file=sys.stderr)
 
     finite = all(bool(torch.isfinite(v).all()) for v in prog_fields.values())
-    dt = case["dt"]
-    ctx = {"dtype": case["dtype"], "nl": inp.nl, "nt": inp.mesh.nt,
-           "m_2d": inp.m_2d, "dt": dt, "cell": cell, "steps": n,
-           "wall_s": wall_s, "step_ms": step_ms, "trace": tr,
-           "launches": counts}
-    kind = "per_layer" if traced else "end_to_end"
+    n, wall_s, step_ms = ctx["steps"], ctx["wall_s"], ctx["step_ms"]
+    kind = "per_layer" if ctx["trace"] is not None else "end_to_end"
     metrics = {}
     for m in spec.metrics_of(workload, kind):
         if m["name"] == "setup_s":
             value = setup_s
         elif m["name"] == "sim_s_per_s":
-            value = n * dt / wall_s
+            value = n * ctx["dt"] / wall_s
         elif m["name"] == "step_ms_p90":
             value = p90(step_ms)
         elif m["name"] == "peak_mem_gib":
-            value = peak / GIB
+            value = dev["memory_peak_bytes"] / GIB
         else:
             value = spec.reader(m["name"])(ctx)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    dev = {"platform": "gpu" if device.type == "cuda" else device.type,
-           "kind": (torch.cuda.get_device_name(device)
-                    if device.type == "cuda" else "cpu"),
-           "count": 1, "memory_peak_bytes": peak,
-           "power_limit_w": (power_limit_w() if device.type == "cuda"
-                             else None)}
+    setup_parts = {name: t - prev for (name, t), prev in
+                   zip(marks, [t_start] + [t for _, t in marks[:-1]])}
     out = {"correct": correct, "attempted": n, "failed": 0 if finite else n,
            "metrics": metrics, "device": dev,
            "steps": {"window": n, "compared": steps, "wall_s": wall_s,
                      "step_ms": step_ms},
            "setup_parts_s": setup_parts}
-    if traced:
-        dev["busy_s"] = tr.busy_ns() / 1e9
-        dev["window_s"] = tr.window_s
-        out["breakdown"] = _breakdown(tr)
+    if ctx["trace"] is not None:
+        out["breakdown"] = _breakdown(ctx["trace"])
     out["checks"] = checks
     return out

@@ -1,5 +1,6 @@
 """The device's idle share of the traced steps, in %: one minus the union
-of the device activities' intervals over the traced steps' wall time."""
+of the device activities' intervals, a collective's kernels left out (they
+wait for a peer), over the traced steps' wall time."""
 
 
 def read(ctx):

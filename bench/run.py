@@ -6,8 +6,12 @@ result as the last line of standard output.
 With ``--trace 0`` the line carries the cell's end-to-end metrics, with
 ``--trace 1`` its per-layer metrics and the device's busy time.  The
 numbers compared with the plain reference, each beside its limit, end
-standard error and end the result line (``checks``).  Exits non-zero and
-prints no result without a CUDA card, or when the run cannot be judged.
+standard error and end the result line (``checks``).  A cell of one chip
+runs in this process on cuda:0 (`harness.run_cell`); a cell of P chips as
+P ranks, one a card over NCCL (`ranks.run_cell`), whose set-up time counts
+from this process's start.  Exits non-zero and prints no result without
+the cards the cell asks for, when a rank fails or the ranks outlast their
+deadline, or when the run cannot be judged.
 """
 from __future__ import annotations
 
@@ -50,8 +54,23 @@ def main(argv=None) -> int:
         print(f"{args.workload} needs {chips} cards, "
               f"{torch.cuda.device_count()} present", file=sys.stderr)
         return 2
-    out = harness.run_cell(args.workload, args.seed, args.seconds,
-                           bool(args.trace), torch.device("cuda", 0), T_START)
+    if chips == 1:
+        out = harness.run_cell(args.workload, args.seed, args.seconds,
+                               bool(args.trace), torch.device("cuda", 0),
+                               T_START)
+    else:
+        from bench import ranks
+        try:
+            out = ranks.run_cell(args.workload, args.seed, args.seconds,
+                                 bool(args.trace), chips, T_START)
+        except ranks.RankFailure as exc:
+            print(exc, file=sys.stderr)
+            return 1
+    found = harness.forbidden_modules()
+    if found:
+        print(f"forbidden modules loaded: {', '.join(found)}",
+              file=sys.stderr)
+        return 1
     for name, c in out["checks"].items():
         print(f"check {name}: {c['value']:.6e} (limit {c['limit']:.6e})",
               file=sys.stderr)

@@ -3,7 +3,9 @@
 (`bench/reference`).  Both expose the same modules (`geometry`,
 `extrusion`, `dg2d`, `stepper`), so one function builds either, in any
 dtype: the control is the reference in the precision below the
-configuration's."""
+configuration's.  `build_rank` builds one rank's side of the program on
+a partitioned mesh: `repro_torch.distributed.ocean.DistributedOcean`,
+from the same inputs and configuration."""
 from __future__ import annotations
 
 import dataclasses
@@ -37,6 +39,13 @@ def port_modules() -> types.SimpleNamespace:
                                  geometry=geometry, stepper=stepper)
 
 
+def rank_modules() -> types.SimpleNamespace:
+    """`port_modules` and the port's distributed runtime (`halo`, `ocean`)."""
+    mods = port_modules()
+    from repro_torch.distributed import halo, ocean
+    return types.SimpleNamespace(**vars(mods), halo=halo, ocean=ocean)
+
+
 def reference_modules() -> types.SimpleNamespace:
     from .reference import dg2d, extrusion, geometry, stepper
     return types.SimpleNamespace(dg2d=dg2d, extrusion=extrusion,
@@ -53,28 +62,64 @@ class Side:
     state: object
     forcing_at: Callable
     advance: Callable
+    ranks: object = None    # the rank's DistributedOcean (build_rank)
+
+
+def config(mods: types.SimpleNamespace, inp: Inputs):
+    case = inp.case
+    return mods.stepper.OceanConfig(
+        nl=inp.nl, dt=case["dt"], m_2d=inp.m_2d, eos_kind=case["eos_kind"],
+        use_gls=True, coriolis_f=case["coriolis_f"])
+
+
+def initial_state(mods: types.SimpleNamespace, geom, vg, inp: Inputs,
+                  dtype: torch.dtype, ids: torch.Tensor = None):
+    """The run's initial state on ``geom``: the inputs' T and eta, fluid at
+    rest, uniform S; with ``ids``, at those slots of the whole mesh."""
+    case = inp.case
+    st = mods.stepper.init_state(geom, vg, T0=case["T0"], S0=case["S0"])
+    zero2 = torch.zeros((3, geom.nt), dtype=dtype, device=geom.area.device)
+    T, eta = inp.T, inp.eta
+    if ids is not None:
+        T, eta = T[..., ids], eta[..., ids]
+    return dataclasses.replace(
+        st, T=T.to(dtype), ext=mods.dg2d.State2D(eta.to(dtype), zero2, zero2))
 
 
 def build(mods: types.SimpleNamespace, inp: Inputs, dtype: torch.dtype,
           device: torch.device) -> Side:
-    case = inp.case
     geom = mods.geometry.geom2d_from_mesh(inp.mesh, dtype=dtype, device=device)
     z = dict(dtype=dtype, device=device)
     vg = mods.extrusion.VGrid(b=torch.as_tensor(inp.b, **z), nl=inp.nl)
-    cfg = mods.stepper.OceanConfig(
-        nl=inp.nl, dt=case["dt"], m_2d=inp.m_2d, eos_kind=case["eos_kind"],
-        use_gls=True, coriolis_f=case["coriolis_f"])
-    st = mods.stepper.init_state(geom, vg, T0=case["T0"], S0=case["S0"])
-    zero2 = torch.zeros((3, geom.nt), **z)
-    st = dataclasses.replace(
-        st, T=inp.T.to(dtype),
-        ext=mods.dg2d.State2D(inp.eta.to(dtype), zero2, zero2))
+    cfg = config(mods, inp)
+    st = initial_state(mods, geom, vg, inp, dtype)
     forcing_at = _forcing(mods, inp, z, geom.nt)
 
     def advance(s):
         return mods.stepper.step(geom, vg, cfg, s, forcing_at(s.time))
     return Side(geom=geom, vg=vg, cfg=cfg, state=st, forcing_at=forcing_at,
                 advance=advance)
+
+
+def build_rank(mods: types.SimpleNamespace, inp: Inputs, dtype: torch.dtype,
+               device: torch.device, rank: int, n_ranks: int) -> Side:
+    """Rank ``rank`` of ``n_ranks`` (``mods``: `rank_modules`, after the
+    process group is up): `DistributedOcean` on Hilbert stripes at the
+    program's default halo depth, with `build`'s configuration; its state
+    is the rank's slots of `build`'s initial state, its ``advance`` the
+    program's `make_step`."""
+    if inp.case.get("forcing") is not None:
+        raise ValueError("the port's distributed step takes no field "
+                         "forcing: a forced configuration runs on one card")
+    cfg = config(mods, inp)
+    do = mods.ocean.DistributedOcean(inp.mesh, inp.b, cfg, rank, n_ranks,
+                                     mods.halo.Transport(), dtype=dtype,
+                                     device=device)
+    ids = torch.as_tensor(do.spec.glob_ids[rank], device=inp.T.device)
+    st = initial_state(mods, do.geom, do.vg, inp, dtype, ids)
+    none = mods.stepper.Forcing3D()
+    return Side(geom=do.geom, vg=do.vg, cfg=cfg, state=st,
+                forcing_at=lambda t: none, advance=do.make_step(), ranks=do)
 
 
 def _forcing(mods, inp: Inputs, z: dict, nt: int) -> Callable:

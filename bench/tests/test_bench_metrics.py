@@ -102,6 +102,58 @@ def test_roofline_reads_only_the_costed_calls():
         100 * bound * 2 / 0.004)
 
 
+def test_step_mfu_divides_by_the_cards():
+    one = read("step_mfu", ctx(None))
+    assert read("step_mfu", ctx(None, chips=1)) == one
+    assert read("step_mfu", ctx(None, chips=4)) == pytest.approx(one / 4)
+
+
+def test_halo_counters_per_step():
+    c = ctx(None, steps=40, halo={"shifts": 40 * 300, "bytes": 40 * 2.5e6})
+    assert read("halo_shifts_per_step", c) == 300
+    assert read("halo_mb_per_step", c) == pytest.approx(2.5)
+    assert read("halo_shifts_per_step",
+                ctx(None, halo={"shifts": 0, "bytes": 0})) is None
+
+
+def test_halo_device_time_reads_kernels_inside_the_exchanges():
+    """Two exchanges a step on the host, [4.5, 5] and [7, 7.25] ms of each
+    step: K3 (launched at 4.5) and the elementwise kernel (launched at 7)
+    count; the memcpy (no launch) and the burst's kernels do not."""
+    tr = synthetic()
+    tr.ranges["halo.exchange"] = [(int((s + a) * MS), int((s + b) * MS))
+                                  for s in (0, 10)
+                                  for a, b in ((4.5, 5.0), (7.0, 7.25))]
+    assert read("halo_device_ms_per_step", ctx(tr)) == pytest.approx(2.5)
+    assert read("halo_device_ms_per_step", ctx(synthetic())) is None
+
+
+def test_collective_kernels_are_the_exchange_s_alone():
+    """An NCCL kernel waiting for its peer inside the burst (launched at
+    3.5 ms of each step, running [3.6, 4.6]) and one outside it (launched
+    at 9.2, running [9.3, 9.9]), both inside `halo.exchange` ranges: the
+    exchange reads them; the burst, the DG operators and the device's busy
+    time do not."""
+    tr = synthetic()
+    for s in (0, 10):
+        tr.ops += [op("ncclDevKernel_SendRecv(ncclDevKernelArgsStorage)",
+                      s + 3.6, 1.0, s + 3.5),
+                   op("ncclDevKernel_SendRecv(ncclDevKernelArgsStorage)",
+                      s + 9.3, 0.6, s + 9.2)]
+    tr.ranges["halo.exchange"] = [(int((s + a) * MS), int((s + b) * MS))
+                                  for s in (0, 10)
+                                  for a, b in ((3.4, 3.55), (9.1, 9.25))]
+    plain = synthetic()
+    c = ctx(tr)
+    assert tr.busy_ns() == plain.busy_ns()
+    assert tr.gaps() == plain.gaps()
+    for name in ("burst_device_ms_per_step", "dg_ops_device_ms_per_step",
+                 "device_idle_share"):
+        assert read(name, c) == read(name, ctx(plain))
+    assert read("halo_device_ms_per_step", c) == pytest.approx(1.6)
+    assert read("launches_per_step", c) == 6
+
+
 @pytest.mark.parametrize("name", [m["name"] for m in spec.benchmark()["per_layer"]])
 def test_readers_silent_without_a_trace(name):
     c = ctx(None, cell={"flops_per_step": None})

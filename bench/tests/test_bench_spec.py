@@ -43,7 +43,7 @@ def test_metrics_shape(section):
 def test_workload_files_found_by_name(workload):
     w = spec.workload(workload)
     assert NAME.match(w["name"]) and len(w["why"]) <= 200
-    assert w["chips"] == 1
+    assert w["chips"] in (1, 4)
     case = spec.config(w["config"])
     traffic = spec.traffic(w["traffic"])
     cell = spec.cell(workload)
@@ -55,6 +55,13 @@ def test_workload_files_found_by_name(workload):
         for m in spec.metrics_of(workload, section):
             if section == "per_layer":
                 assert callable(spec.reader(m["name"]))
+
+
+def test_few_cells_take_four_chips():
+    """At most a quarter of the cells, rounded down, take four chips, and
+    always one may."""
+    four = [w for w in B["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(B["workloads"]) // 4)
 
 
 @pytest.mark.parametrize("config", [c["name"] for c in B["configs"]])

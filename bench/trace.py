@@ -13,8 +13,13 @@ import bisect
 import dataclasses
 
 # the profiler also lays each range on the device timeline under its own
-# name: those are not device work
-RANGE_PREFIXES = ("imex.", "stage.", "kops.", "obs.")
+# name: those are not device work (`halo.`, `distributed.`: the ranges of
+# the port's distributed step)
+RANGE_PREFIXES = ("imex.", "stage.", "kops.", "obs.", "halo.",
+                  "distributed.")
+# a collective's kernels (NCCL's send/receive) spin on the device while they
+# wait for a peer: they are the exchange's time, not the device's work
+COMM_PREFIX = "nccl"
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                 "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
 
@@ -26,6 +31,11 @@ class DeviceOp:
     dur_ns: int
     launched_ns: int        # host time of the launch call, -1 if unknown
     kernel: bool            # False for memcpy / memset
+
+    @property
+    def comm(self) -> bool:
+        """A collective's kernel (`COMM_PREFIX`)."""
+        return self.name.startswith(COMM_PREFIX)
 
 
 @dataclasses.dataclass
@@ -51,9 +61,16 @@ class Trace:
             return self._spans[i][2]
         return "outside the stages"
 
+    def _work(self) -> list:
+        """(start_ns, end_ns) of the device activities but a collective's
+        kernels, in order."""
+        return sorted((o.start_ns, o.start_ns + o.dur_ns) for o in self.ops
+                      if not o.comm)
+
     def busy_ns(self) -> int:
-        """The union of the device activities' intervals."""
-        spans = sorted((o.start_ns, o.start_ns + o.dur_ns) for o in self.ops)
+        """The union of the device activities' intervals, a collective's
+        kernels left out."""
+        spans = self._work()
         total, cur_a, cur_b = 0, None, None
         for a, b in spans:
             if cur_b is None or a > cur_b:
@@ -67,8 +84,9 @@ class Trace:
         return total
 
     def gaps(self) -> list:
-        """(start_ns, length_ns) of each idle gap between device activities."""
-        spans = sorted((o.start_ns, o.start_ns + o.dur_ns) for o in self.ops)
+        """(start_ns, length_ns) of each idle gap between the device
+        activities of `busy_ns`."""
+        spans = self._work()
         out, end = [], None
         for a, b in spans:
             if end is not None and a > end:
